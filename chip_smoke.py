@@ -5,25 +5,37 @@
 
 Phases (each raises on failure, so any failure exits non-zero):
 
-1. build every CUDA kernel of the main path from ``src/repro_torch/kernels/csrc``
+1. build every CUDA kernel of the main paths from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together) and print the card's name
    and power limit;
 2. hold each kernel against its plain torch version on the card, at the
-   main path's shapes and at ragged sizes, and time both with CUDA events;
-3. the main path, through ``PADPSFRScheduler(engine="cuda").schedule``:
+   main paths' shapes and at ragged sizes, and time both with CUDA events:
+   the single-instance sweep at 10^6 rows, the fleet-parallel sweep at a
+   full round (64 instances x 4096 rows x 7 tasks, 4 devices);
+3. the ``schedule()`` path, through ``PADPSFRScheduler(engine="cuda")``:
    the paper's Example 1 (|TSS|=1024 |TFS|=620 rejects=146 rank=4
    power=31.5, T3 split 12:12);
 4. the deep 10-task x 4-variant instance on 6 devices (winner at rank
    425399), checked against the plain engine on CPU tensors;
 5. the placement options (``resilience=1``; the preemptive resume cost),
-   checked against the plain engine on CPU tensors.
+   checked against the plain engine on CPU tensors;
+6. the fleet-parallel path, ``schedule_many`` on ``engine="cuda"``: 64 band
+   instances (7 tasks x 4 variants) on a 4-device fleet, with
+   ``block_size=16`` and with the default ramp, each instance checked
+   against the card's solo ``schedule()`` and the plain engine; instances/s
+   of the many-walk and of the solo loop, and the device split;
+7. ``schedule_many``'s options: a ragged heterogeneous batch with mixed
+   fleets and an infeasible member under ``resilience=1`` and under the
+   preemptive resume cost, checked against the plain engine.
 
-The launch counts are zeroed just before each main-path phase and read
-just after it; the comparisons of phase 2 are outside those windows.  The
-last three lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero without
-printing a result when no CUDA device is present or when run outside a
-checkout of the repository.
+The launch counts are zeroed just before each main-path run and read just
+after it (for phase 6, around the many-walk alone: it must launch the
+fleet-parallel kernel and never the single-instance one); the comparisons
+of phase 2 are outside those windows.  The last three lines are the
+kernels' JSON record, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
+result when no CUDA device is present or when run outside a checkout of
+the repository.
 """
 
 from __future__ import annotations
@@ -52,6 +64,14 @@ OPS_PER_STEP = 12
 
 SWEEP_ROWS = 1_000_000
 RAGGED_ROWS = (1, 7, 1025)
+# The fleet-parallel round: _MANY_ROUND_ROWS = 2^18 rows at the JAX
+# package's fleet_parallel widths (7 tasks, 4 devices).
+ROUND = dict(B=64, R=4096, n_t=7, n_f=4)
+# (rows, n_t, n_f) of a ragged stack: a 1-row instance, mixed widths, and
+# 1-device fleets, which keep no survivor under resilience=1.
+RAGGED_STACK = ((1, 3, 2), (700, 6, 5), (17, 2, 1), (4096, 7, 3), (64, 4, 4),
+                (1025, 7, 4), (5, 1, 1))
+MANY_B = 64
 TIMED_REPS = 30
 EXAMPLE1 = dict(n_tss=1024, n_tfs=620, rejects=146, rank=4, power=31.5)
 DEEP_RANK = 425399
@@ -112,6 +132,67 @@ def sweep_block(rng, B, n_t, capacity):
     return base * scale
 
 
+def fleet_parallel_instances():
+    """The JAX package's fleet_parallel instance (benchmarks/scheduler_scale.py):
+    64 band instances of 7 tasks x 4 variants on one 4-device pod."""
+    from repro_torch.core import FleetSpec, ScheduleInstance
+
+    insts = [ScheduleInstance(tasks=tuple(band_tasks(7, 4, seed=100 + s, base=84.0)))
+             for s in range(MANY_B)]
+    return insts, FleetSpec(n_f=4, t_slr=100.0, t_cfg=0.0)
+
+
+def random_instances(rng, n):
+    """Ragged heterogeneous instances: 1-5 tasks of 1-3 variants each, on
+    fleets of 1-5 FPGA/GPU/CPU devices (the JAX package's test harness)."""
+    from repro_torch.core import DeviceProfile, FleetSpec, ScheduleInstance, Task, TaskVariant
+
+    insts = []
+    for _ in range(n):
+        tasks = []
+        for i in range(int(rng.integers(1, 6))):
+            nv = int(rng.integers(1, 4))
+            ths, pws = np.sort(rng.uniform(0.3, 4.0, nv)), np.sort(rng.uniform(1.0, 9.0, nv))
+            tasks.append(Task(
+                name=f"T{i}", period=float(rng.uniform(20.0, 100.0)),
+                data=float(rng.uniform(5.0, 80.0)), init_interval=float(rng.uniform(0.0, 8.0)),
+                variants=tuple(TaskVariant(cu=j + 1, throughput=float(t), power=float(p))
+                               for j, (t, p) in enumerate(zip(ths, pws, strict=True))),
+            ))
+        devices = []
+        for _ in range(int(rng.integers(1, 6))):
+            klass = ("fpga", "gpu", "cpu")[int(rng.integers(3))]
+            devices.append(DeviceProfile(
+                t_slr=float(rng.uniform(30.0, 120.0)),
+                t_cfg=float(rng.uniform(0.5, 10.0)) if klass == "fpga" else 0.0, klass=klass,
+            ))
+        insts.append(ScheduleInstance(tasks=tuple(tasks), fleet=FleetSpec.heterogeneous(devices)))
+    return insts
+
+
+def instance_stack(rng, shapes, device):
+    """A packed (B, R, n_t) stack of instances with their own tables, on the
+    card, with its resilience=1 survivor tables: (main args, survivor args)."""
+    import torch
+
+    from repro_torch.core.placement_backends import InstanceBatch, survivor_batch_tables
+
+    blocks = []
+    for rows, n_t, n_f in shapes:
+        t_slr = rng.uniform(60.0, 140.0, n_f)
+        blocks.append((sweep_block(rng, rows, n_t, t_slr.sum()), rng.uniform(1.0, 5.0, n_t),
+                       t_slr, rng.uniform(0.0, 6.0, n_f)))
+    batch = InstanceBatch.pack(blocks)
+    slr_s, cfg_s, nfe_s = survivor_batch_tables(batch.t_slr, batch.t_cfg, batch.n_f_eff, 1)
+
+    def on(a, dtype=torch.float64):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    main = (on(batch.shares), on(batch.iis), on(batch.t_slr), on(batch.t_cfg),
+            on(batch.n_t_eff, torch.int32), on(batch.n_f_eff, torch.int32))
+    return main, (*main[:2], on(slr_s), on(cfg_s), main[4], on(nfe_s, torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -139,13 +220,27 @@ def phase_build() -> dict:
     return {"sources": sources, "seconds": secs}
 
 
+# Device cycles of the spin queued ahead of each timed run: about 1 ms at
+# the H100's clock, well above the wrappers' host time for one launch.
+SPIN_CYCLES = 2_000_000
+
+
 def _events_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, by CUDA events."""
+    """Median device time of ``fn`` over ``reps`` runs, by CUDA events.
+
+    Each run is queued behind a spin on the stream, so the start event,
+    ``fn``'s launches and the end event are all enqueued before the device
+    reaches them: the time between the events is the device's work, not
+    the host's time to check arguments and launch.  A ``fn`` that waits on
+    the device itself (the plain versions read a count back every step)
+    is timed in full from the start event on.
+    """
     import torch
 
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -206,15 +301,78 @@ def phase_kernel_vs_plain(device) -> dict:
     plain_ms = _events_ms(lambda: placement_sweep_plain(big, iis, slr, cfg, **call), TIMED_REPS)
     (feas, *_), steps = _plain_sweep(big, iis, slr, cfg, call["resume_cost"], call["repay_init"])
     n_bytes = 8 * SWEEP_ROWS * n_t + 8 * (n_t + 2 * n_f) + SWEEP_ROWS * (1 + 4 + 4 + 4)
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = steps * OPS_PER_STEP / FP64_OPS_PER_S * 1e3
     rec = {
         "rows": SWEEP_ROWS, "n_t": n_t, "n_f": n_f, "feasible_rows": int(feas.sum()),
         "row_steps": steps, "bytes": n_bytes, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "max_abs_err": max_err, "library_ms": None,
+        **_bound(n_bytes, steps), "max_abs_err": max_err, "library_ms": None,
     }
     print("[kernel] " + json.dumps({"placement_sweep_timing": rec}), flush=True)
+    return rec
+
+
+def _bound(n_bytes: int, row_steps: int) -> dict:
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = row_steps * OPS_PER_STEP / FP64_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_batch_kernel_vs_plain(device) -> dict:
+    """placement_sweep_batch: kernel == plain version on the card over the
+    whole (B, R) output (full round, ragged stack, survivors, five option
+    variants), then timed at the full round."""
+    import torch
+
+    from repro_torch.kernels.placement_step import (
+        _plain_sweep_batch,
+        placement_sweep_batch_cuda,
+        placement_sweep_batch_plain,
+    )
+
+    rng = np.random.default_rng(4)
+    stacks = {
+        "full-round": instance_stack(rng, [(ROUND["R"], ROUND["n_t"], ROUND["n_f"])] * ROUND["B"],
+                                     device),
+        "ragged": instance_stack(rng, RAGGED_STACK, device),
+    }
+    variants = [
+        ("padpsfr", 0, dict(repay_init=True, resume_cost=0.0)),
+        ("padpsfr-resume9.5", 0, dict(repay_init=True, resume_cost=9.5)),
+        ("preemptive-resume0", 0, dict(repay_init=False, resume_cost=0.0)),
+        ("preemptive-resume9.5", 0, dict(repay_init=False, resume_cost=9.5)),
+        ("survivors-k1", 1, dict(repay_init=True, resume_cost=0.0)),
+    ]
+    max_err = 0
+    for kind, tables in stacks.items():
+        for name, which, kw in variants:
+            args = tables[which]
+            got = placement_sweep_batch_cuda(*args, **kw)
+            want = placement_sweep_batch_plain(*args, **kw)
+            torch.cuda.synchronize()
+            for g, w, out in zip(got, want, ("feasible", "placed", "n_splits", "devices_used"),
+                                 strict=True):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"placement_sweep_batch {name} {kind}: {out} differs")
+                max_err = max(max_err, int((g.long() - w.long()).abs().max()))
+        B, R = tables[0][0].shape[:2]
+        print(f"[kernel] placement_sweep_batch {kind} B={B} R={R}: 5 variants equal to plain "
+              f"(last: {int(got[0].sum())}/{B * R} feasible; survivor widths "
+              f"{tables[1][5].tolist() if B < 16 else 'full'})", flush=True)
+    args = stacks["full-round"][0]
+    call = dict(repay_init=True, resume_cost=0.0)
+    ms = _events_ms(lambda: placement_sweep_batch_cuda(*args, **call), TIMED_REPS)
+    plain_ms = _events_ms(lambda: placement_sweep_batch_plain(*args, **call), TIMED_REPS)
+    (feas, *_), steps = _plain_sweep_batch(*args, call["resume_cost"], call["repay_init"])
+    B, R, n_t, n_f = ROUND["B"], ROUND["R"], ROUND["n_t"], ROUND["n_f"]
+    # Shares and tables read once, two int32 counts an instance, 13 B of
+    # outputs a row written once.
+    n_bytes = 8 * B * R * n_t + 8 * B * (n_t + 2 * n_f) + 8 * B + 13 * B * R
+    rec = {
+        **ROUND, "rows": B * R, "feasible_rows": int(feas.sum()), "row_steps": steps,
+        "bytes": n_bytes, "ms": ms, "plain_ms": plain_ms, **_bound(n_bytes, steps),
+        "max_abs_err": max_err, "library_ms": None,
+    }
+    print("[kernel] " + json.dumps({"placement_sweep_batch_timing": rec}), flush=True)
     return rec
 
 
@@ -287,23 +445,24 @@ def phase_deep(engine: str) -> dict:
     return rec
 
 
-def _device_split(run) -> dict:
+def _device_split(run, kernel: str = "placement_sweep_kernel") -> dict:
     """Device time of one traced ``run()`` by kind, from torch.profiler:
-    the sweep kernel, host-to-device and device-to-host copies, the rest."""
+    the sweep kernel named ``kernel``, host-to-device and device-to-host
+    copies, the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
-    split = {"placement_sweep_kernel": 0.0, "memcpy_htod": 0.0, "memcpy_dtoh": 0.0}
+    split = {kernel: 0.0, "memcpy_htod": 0.0, "memcpy_dtoh": 0.0}
     other: dict[str, float] = {}
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if us <= 0.0:
             continue
-        if "placement_sweep_kernel" in e.key:
-            split["placement_sweep_kernel"] += us
+        if kernel in e.key:
+            split[kernel] += us
         elif "HtoD" in e.key:
             split["memcpy_htod"] += us
         elif "DtoH" in e.key:
@@ -332,18 +491,114 @@ def phase_options(engine: str) -> None:
         print(f"[options] {kw}: {got.summary()}", flush=True)
 
 
+def _counted(run):
+    """Run ``run()`` with every kernel's launch count set to 0 just before
+    it; return its result and the counts read just after."""
+    from repro_torch.kernels.placement_step import placement_sweep_batch_cuda, placement_sweep_cuda
+
+    kernels = {"placement_sweep": placement_sweep_cuda,
+               "placement_sweep_batch": placement_sweep_batch_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
+    out = run()
+    return out, {name: fn.launches for name, fn in kernels.items()}
+
+
+def _check_many_launches(what: str, launches: dict) -> None:
+    """The many-walk runs on the fleet-parallel kernel alone: no
+    per-instance path launched the single-instance kernel."""
+    if launches["placement_sweep_batch"] <= 0 or launches["placement_sweep"] != 0:
+        raise AssertionError(f"{what}: launches {launches}; want placement_sweep_batch > 0 "
+                             f"and placement_sweep == 0")
+
+
+def phase_many(engine: str, block_size: int | None) -> dict:
+    """schedule_many over the fleet-parallel instance, against the card's
+    solo schedule() loop and the plain engine, instance by instance."""
+    from repro_torch.core import PADPSFRScheduler, WalkStats
+
+    insts, fleet = fleet_parallel_instances()
+    sched = PADPSFRScheduler(fleet, engine=engine, block_size=block_size)
+
+    def many_twice():  # the first run pays one-time set-up (pinned pool, first launches)
+        runs = []
+        for _ in range(2):
+            ws = WalkStats()
+            t0 = time.perf_counter()
+            res = sched.schedule_many(insts, walk_stats=ws)
+            runs.append((time.perf_counter() - t0, ws, res))
+        return runs
+
+    runs, launches = _counted(many_twice)
+    what = f"schedule_many block_size={block_size}"
+    _check_many_launches(what, launches)
+    res = runs[-1][2]
+    t0 = time.perf_counter()
+    loop = [sched.schedule(i.tasks) for i in insts]
+    loop_s = time.perf_counter() - t0
+    want = PADPSFRScheduler(fleet, engine="torch", block_size=block_size).schedule_many(insts)
+    for i, r in enumerate(res):
+        _same_result(runs[0][2][i], r, f"{what}: instance {i}, first run vs second")
+        _same_result(r, loop[i], f"{what}: instance {i}, many vs solo schedule() on the card")
+        _same_result(r, want[i], f"{what}: instance {i}, cuda vs torch")
+    ws = runs[-1][1]
+    ranks = sorted(r.chosen_rank for r in res)
+    rec = {
+        "block_size": block_size, "instances": len(insts),
+        "feasible": sum(r.feasible for r in res),
+        "chosen_rank_min_median_max": [ranks[0], ranks[len(ranks) // 2], ranks[-1]],
+        "many_s": [r[0] for r in runs], "loop_s": loop_s,
+        "many_instances_per_s": len(insts) / runs[-1][0],
+        "loop_instances_per_s": len(insts) / loop_s,
+        "walk_stats": {k: v for k, v in ws.as_dict().items() if k != "block_sizes"},
+        "launches_two_runs": launches,
+        "device_us": _device_split(lambda: sched.schedule_many(insts),
+                                   kernel="placement_sweep_batch_kernel"),
+    }
+    print("[many] " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_options_many(engine: str) -> dict:
+    """schedule_many's placement options on a ragged heterogeneous batch
+    with mixed fleets and an infeasible member, against the plain engine."""
+    from repro_torch.core import FleetSpec, PADPSFRScheduler, ScheduleInstance, Task, TaskVariant
+
+    rng = np.random.default_rng(2026)
+    hog = Task("hog", period=10.0, data=1000.0, init_interval=1.0,
+               variants=(TaskVariant(cu=1, throughput=1.0, power=5.0),))
+    insts = random_instances(rng, 24)
+    insts.insert(5, ScheduleInstance(tasks=(hog,)))
+    fleet = FleetSpec(n_f=2, t_slr=30.0, t_cfg=1.0)
+    total = {"placement_sweep": 0, "placement_sweep_batch": 0}
+    for kw in (dict(resilience=1), dict(repay_init=False, t_capture=4.5, t_store=5.0)):
+        got, launches = _counted(lambda kw=kw: PADPSFRScheduler(fleet, engine=engine).schedule_many(
+            insts, count_all_rejects=True, **kw))
+        _check_many_launches(f"schedule_many {kw}", launches)
+        want = PADPSFRScheduler(fleet, engine="torch").schedule_many(
+            insts, count_all_rejects=True, **kw)
+        for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            _same_result(g, w, f"schedule_many {kw}: instance {i}")
+        if got[5].feasible:
+            raise AssertionError("schedule_many: the infeasible member was placed")
+        total = {k: total[k] + launches[k] for k in total}
+        print(f"[many-options] {kw}: {sum(r.feasible for r in got)}/{len(got)} feasible, "
+              f"launches {json.dumps(launches)}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
-    from repro_torch.kernels.placement_step import placement_sweep_cuda
-
     card = _card()
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     phase_build()
-    timing = phase_kernel_vs_plain(torch.device("cuda", 0))
+    device = torch.device("cuda", 0)
+    timing = phase_kernel_vs_plain(device)
+    timing_batch = phase_batch_kernel_vs_plain(device)
 
     launches = {}
     for name, run in (
@@ -351,26 +606,35 @@ def main() -> int:
         ("deep", lambda: phase_deep("cuda")),
         ("options", lambda: phase_options("cuda")),
     ):
-        placement_sweep_cuda.launches = 0
-        run()
-        launches[name] = placement_sweep_cuda.launches
+        _, counts = _counted(run)
+        launches[name] = counts["placement_sweep"]
         if launches[name] <= 0:
             raise AssertionError(f"main path '{name}' launched placement_sweep {launches[name]} times")
-    print(f"[launches] placement_sweep per main-path phase: {json.dumps(launches)}", flush=True)
+    print(f"[launches] placement_sweep per schedule() phase: {json.dumps(launches)}", flush=True)
+    many_launches = {
+        "many_block16": phase_many("cuda", 16)["launches_two_runs"]["placement_sweep_batch"],
+        "many_ramp": phase_many("cuda", None)["launches_two_runs"]["placement_sweep_batch"],
+        "many_options": phase_options_many("cuda")["placement_sweep_batch"],
+    }
+    print(f"[launches] placement_sweep_batch per schedule_many phase: "
+          f"{json.dumps(many_launches)}", flush=True)
 
-    kernels = [{
-        "name": "placement_sweep",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/placement_sweep.cu",
-        "replaces": "src/repro/kernels/placement_step.py:136",
-        "launches": sum(launches.values()),
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]
+    kernels = []
+    for name, replaces, rec, n in (
+        ("placement_sweep", "src/repro/kernels/placement_step.py:136", timing,
+         sum(launches.values())),
+        ("placement_sweep_batch", "src/repro/kernels/placement_step.py:267", timing_batch,
+         sum(many_launches.values())),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": n,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,7 @@ from .base import (
     prepare_block,
     register_backend,
     resolve_engine,
+    survivor_batch_tables,
     survivor_tables,
 )
 
@@ -46,5 +47,6 @@ __all__ = [
     "prepare_block",
     "register_backend",
     "resolve_engine",
+    "survivor_batch_tables",
     "survivor_tables",
 ]

@@ -58,10 +58,40 @@ slice.  Every backend spells out::
 
 Each returned :class:`BatchPlacement` is trimmed to that instance's
 ``n_rows`` and must be **bit-identical** to a solo ``place_block`` on the
-trimmed instance (``batch.instance_view(i)``).  The canonical reference is
-:func:`place_instance_blocks`, the loop over instances; every engine of
-this package uses exactly that loop, and ``dispatch_blocks_raw`` answers
-``None`` (no zero-copy surface yet).  ``shard`` is accepted and ignored.
+trimmed instance (``batch.instance_view(i)``) — padding may never leak
+into verdicts.  The canonical reference is :func:`place_instance_blocks`,
+the loop over instances.  ``shard`` is accepted and ignored: one launch
+runs on one card.  Padding rules (also the rules ``pack`` applies):
+
+* rows ``r >= n_rows[i]``: zero shares; their verdicts are computed but
+  meaningless, and are sliced off before a trimmed result is built;
+* task columns ``t >= n_t_eff[i]``: never read — the sweep's task cursor
+  stops at ``n_t_eff`` (padding with zero-*share* tasks instead would
+  change verdicts, because a zero-share task still pays ``t_cfg``);
+* device slots ``j >= n_f_eff[i]``: never read — the device cursor dies
+  (row infeasible) before touching them.  ``n_f_eff == 0`` with live
+  tasks reproduces the empty-fleet early path (all rows infeasible);
+  ``n_t_eff == 0`` reproduces the empty-block path (all rows feasible).
+
+The raw surface::
+
+    dispatch_blocks_raw(batch, opts, *, shard=None)
+        -> (() -> (feasible, placed_tasks, n_splits, devices_used)) | None
+
+returns a resolver of the four *untrimmed* ``(B, R)`` host verdict arrays
+of the fleet-parallel sweep (``kernels.placement_step``): one sweep over
+the whole stack, and a second on :func:`survivor_batch_tables` under
+``resilience=k`` whose verdict the resolver ANDs into ``feasible``.
+Entries outside an instance's live rows are padding; live entries equal
+the trimmed surface's.  ``None`` means the batch has padded width 0
+(``n_t == 0`` or ``n_f == 0``) or no instance: the sweep cannot take it,
+and the trimmed surface answers each instance through ``prepare_block``'s
+early paths.  The ``"cuda"`` and ``"torch"`` engines implement it, and
+their ``dispatch_blocks`` / ``place_blocks`` trim over it; the ``"scalar"``
+engine answers ``None`` and loops over instances.  The lockstep many-walk
+(``scheduler._walk_many_tfs_blocks``) prefers the raw surface, so its
+round bookkeeping is a handful of vectorized reductions instead of B
+per-instance result objects.
 
 Resilience: the second, constrained pass
 ----------------------------------------
@@ -74,7 +104,12 @@ loss hurts most (``repro_torch.core.task.worst_case_survivor_indices``).
 ``n_splits`` / ``devices_used`` keep describing the *primary* sweep.  The
 survivor set is a function of ``(t_slr, t_cfg, k)`` alone, never of the
 candidate row.  ``k >= n_f`` cannot be survived: every row with live tasks
-is infeasible (a ``prepare_block`` early path).
+is infeasible (a ``prepare_block`` early path; in a batch, an instance
+with ``n_f_eff <= k`` gets an empty survivor fleet from
+:func:`survivor_batch_tables`, which gives the same ``feasible``; its
+other three outputs keep describing the primary sweep, where the solo
+early path reports zeros — as in the reference's batched engines.  The
+scheduler answers such instances before any walk, so no caller reads them).
 
 Asynchronous dispatch
 ---------------------
@@ -126,6 +161,9 @@ __all__ = [
     "place_instance_blocks",
     "dispatch_instance_blocks",
     "survivor_tables",
+    "survivor_batch_tables",
+    "prepare_batch",
+    "trim_raw_dispatch",
 ]
 
 
@@ -188,6 +226,35 @@ def survivor_tables(
     """
     keep = worst_case_survivor_indices(t_slr, t_cfg, k)
     return t_slr[keep], t_cfg[keep]
+
+
+def survivor_batch_tables(
+    t_slr: np.ndarray,
+    t_cfg: np.ndarray,
+    n_f_eff: np.ndarray,
+    k: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-instance survivor tables for the fleet-parallel batched sweep.
+
+    For each instance the k worst-case failures are dropped from its live
+    device prefix and the survivors left-packed into the same padded width;
+    instances with ``n_f_eff <= k`` get ``n_f_eff_s == 0`` — the batched
+    sweep's empty-fleet semantics (rows with live tasks infeasible,
+    zero-task rows feasible), matching the scalar oracle's
+    ``resilience >= n_f`` verdicts.
+    """
+    t_slr_s = np.zeros_like(t_slr)
+    t_cfg_s = np.zeros_like(t_cfg)
+    n_f_eff = np.asarray(n_f_eff)
+    n_f_eff_s = np.maximum(n_f_eff - k, 0).astype(n_f_eff.dtype)
+    for i in range(t_slr.shape[0]):
+        nf = int(n_f_eff[i])
+        if nf <= k:
+            continue
+        keep = worst_case_survivor_indices(t_slr[i, :nf], t_cfg[i, :nf], k)
+        t_slr_s[i, : nf - k] = t_slr[i, keep]
+        t_cfg_s[i, : nf - k] = t_cfg[i, keep]
+    return t_slr_s, t_cfg_s, n_f_eff_s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -341,6 +408,66 @@ def dispatch_instance_blocks(
     not depend on it.
     """
     return backend.dispatch_blocks(batch, opts, shard=shard)
+
+
+def prepare_batch(
+    batch: InstanceBatch, opts: PlacementOptions | None
+) -> tuple[PlacementOptions, list[np.ndarray] | None, list[np.ndarray] | None]:
+    """Canonicalise a batch for the fleet-parallel sweep (the raw surface).
+
+    Returns ``(opts, f64, i32)``: ``f64`` holds the contiguous float64
+    ``[shares, iis, t_slr, t_cfg]`` and, under ``resilience=k``, the
+    survivor ``[t_slr_s, t_cfg_s]`` of :func:`survivor_batch_tables`;
+    ``i32`` holds the int32 ``[n_t_eff, n_f_eff]`` and then ``n_f_eff_s``.
+    Both are ``None`` when the sweep cannot take the batch — no instance,
+    or padded width 0 — which the raw surface answers with ``None``.
+    """
+    if opts is None:
+        opts = PlacementOptions()
+    if len(batch) == 0 or batch.shares.shape[2] == 0 or batch.t_slr.shape[1] == 0:
+        return opts, None, None
+    f64 = [
+        np.ascontiguousarray(a, dtype=np.float64)
+        for a in (batch.shares, batch.iis, batch.t_slr, batch.t_cfg)
+    ]
+    i32 = [np.ascontiguousarray(a, dtype=np.int32) for a in (batch.n_t_eff, batch.n_f_eff)]
+    if opts.resilience:
+        slr_s, cfg_s, nfe_s = survivor_batch_tables(f64[2], f64[3], i32[1], opts.resilience)
+        f64 += [slr_s, cfg_s]
+        i32.append(nfe_s)
+    return opts, f64, i32
+
+
+def trim_raw_dispatch(
+    backend: "PlacementBackend",
+    batch: InstanceBatch,
+    opts: PlacementOptions | None = None,
+    *,
+    shard: int | str | None = None,
+):
+    """``dispatch_blocks`` over the backend's raw surface: the resolver
+    slices each instance's live rows out of the ``(B, R)`` verdicts.  A
+    batch the raw surface answers ``None`` goes through
+    :func:`place_instance_blocks`, whose ``prepare_block`` early paths
+    answer each instance."""
+    raw = backend.dispatch_blocks_raw(batch, opts, shard=shard)
+    if raw is None:
+        result = place_instance_blocks(backend, batch, opts)
+        return lambda: result
+
+    def resolve() -> list[BatchPlacement]:
+        feasible, placed, n_splits, devices_used = raw()
+        return [
+            BatchPlacement(
+                feasible=feasible[i, :r],
+                placed_tasks=placed[i, :r].astype(np.int64),
+                n_splits=n_splits[i, :r].astype(np.int64),
+                devices_used=devices_used[i, :r].astype(np.int64),
+            )
+            for i, r in enumerate(batch.n_rows.tolist())
+        ]
+
+    return resolve
 
 
 @runtime_checkable

@@ -14,11 +14,20 @@ nothing is narrowed).  ``resilience=k`` enqueues a second launch on the
 worst-case survivor tables back to back with the first, and the resolver
 ANDs the two verdicts on the host.
 
+Fleet-parallel batching: ``dispatch_blocks_raw`` stages the packed
+``(B, R, n_t)`` stack, the per-instance tables and the live counts through
+pinned memory, makes one launch of the instance-axis kernel
+(:func:`repro_torch.kernels.placement_step.placement_sweep_batch_cuda`)
+for the whole round — a second on the survivor tables under
+``resilience=k`` — and copies the four ``(B, R)`` verdict arrays back into
+pinned buffers behind one event; its resolver ANDs the two feasibility
+arrays.  ``dispatch_blocks`` / ``place_blocks`` trim over it.  Only a batch
+of padded width 0, which no sweep can take, is answered per instance by
+``prepare_block``'s early paths.  ``shard`` is accepted and ignored: one
+launch runs on one card.
+
 There is no fallback: without a CUDA device the engine is unavailable and
-``get_backend("cuda")`` raises; a failed build or launch raises.  The
-batched surface loops over instances (:func:`place_instance_blocks`); a
-kernel with an instance axis comes later, so ``dispatch_blocks_raw``
-answers ``None``.
+``get_backend("cuda")`` raises; a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -26,15 +35,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...kernels.ops import placement_sweep
+from ...kernels.ops import placement_sweep, placement_sweep_batch
 from .base import (
     BatchPlacement,
     InstanceBatch,
     PlacementOptions,
-    place_instance_blocks,
+    prepare_batch,
     prepare_block,
     register_backend,
     survivor_tables,
+    trim_raw_dispatch,
 )
 
 __all__ = ["CudaPlacementBackend"]
@@ -143,8 +153,7 @@ class CudaPlacementBackend:
         *,
         shard=None,
     ) -> list[BatchPlacement]:
-        """Loop over instances (one launch each); ``shard`` is ignored."""
-        return place_instance_blocks(self, batch, opts)
+        return self.dispatch_blocks(batch, opts, shard=shard)()
 
     def dispatch_blocks(
         self,
@@ -153,11 +162,8 @@ class CudaPlacementBackend:
         *,
         shard=None,
     ):
-        """Enqueue every instance's block; the resolver syncs them in order."""
-        resolvers = [
-            self.dispatch_block(*batch.instance_view(i), opts) for i in range(len(batch))
-        ]
-        return lambda: [r() for r in resolvers]
+        """Enqueue the round's launch(es); the resolver trims per instance."""
+        return trim_raw_dispatch(self, batch, opts, shard=shard)
 
     def dispatch_blocks_raw(
         self,
@@ -166,5 +172,44 @@ class CudaPlacementBackend:
         *,
         shard=None,
     ):
-        """No zero-copy surface until the instance-axis kernel lands: ``None``."""
-        return None
+        """Enqueue copies and the batched kernel; the resolver waits for the
+        untrimmed ``(B, R)`` verdicts.  ``None`` for a batch of no instance
+        or of padded width 0.  ``shard`` is ignored."""
+        opts, f64, i32 = prepare_batch(batch, opts)
+        if f64 is None:
+            return None
+        shares, *tables = f64
+        B = shares.shape[0]
+        # Three pinned staging buffers (shares, float64 tables, int32
+        # counts), held by the resolver until its event as in dispatch_block.
+        staging = (
+            torch.from_numpy(shares).pin_memory(),
+            torch.from_numpy(np.concatenate([a.ravel() for a in tables])).pin_memory(),
+            torch.from_numpy(np.concatenate(i32)).pin_memory(),
+        )
+        d_shares, d_tables, d_counts = (t.to(self.device, non_blocking=True) for t in staging)
+        iis, t_slr, t_cfg, *surv = (
+            t.view(B, -1) for t in torch.split(d_tables, [a.size for a in tables])
+        )
+        n_t_eff, n_f_eff, *n_f_eff_s = torch.split(d_counts, B)
+        kw = dict(resume_cost=opts.resume_cost, repay_init=opts.repay_init)
+        outs = placement_sweep_batch(d_shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff, **kw)
+        h_outs = [_to_host(t) for t in outs]
+        if opts.resilience:
+            feas_s = placement_sweep_batch(
+                d_shares, iis, surv[0], surv[1], n_t_eff, n_f_eff_s[0], **kw
+            )[0]
+            h_outs.append(_to_host(feas_s))
+        done = torch.cuda.Event()
+        done.record()
+
+        def resolve_raw():
+            nonlocal staging
+            done.synchronize()
+            staging = None  # the copies have read it: free to go
+            feasible = h_outs[0].numpy()
+            if opts.resilience:
+                feasible = feasible & h_outs[4].numpy()
+            return feasible, h_outs[1].numpy(), h_outs[2].numpy(), h_outs[3].numpy()
+
+        return resolve_raw

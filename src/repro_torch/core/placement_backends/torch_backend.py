@@ -13,6 +13,12 @@ the sweep runs on the CPU: this is the engine for the tests and for hosts
 without a card.  It is eager — it computes in the caller's thread — so its
 dispatch hooks return already-resolved results and ``async_dispatch`` is
 False; the full five-method surface is spelled out anyway (B101).
+
+Fleet-parallel batching: ``dispatch_blocks_raw`` runs
+:func:`repro_torch.kernels.placement_step.placement_sweep_batch_plain` over
+the whole padded stack (and once more on the survivor tables under
+``resilience=k``), the same two passes the ``"cuda"`` engine launches;
+``dispatch_blocks`` / ``place_blocks`` trim over it.
 """
 
 from __future__ import annotations
@@ -20,15 +26,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...kernels.ops import placement_sweep
+from ...kernels.ops import placement_sweep, placement_sweep_batch
 from .base import (
     BatchPlacement,
     InstanceBatch,
     PlacementOptions,
-    place_instance_blocks,
+    prepare_batch,
     prepare_block,
     register_backend,
     survivor_tables,
+    trim_raw_dispatch,
 )
 
 __all__ = ["TorchPlacementBackend"]
@@ -98,8 +105,7 @@ class TorchPlacementBackend:
         *,
         shard=None,
     ) -> list[BatchPlacement]:
-        """Loop over instances (the bit-exact reference); ``shard`` ignored."""
-        return place_instance_blocks(self, batch, opts)
+        return self.dispatch_blocks(batch, opts, shard=shard)()
 
     def dispatch_blocks(
         self,
@@ -108,9 +114,8 @@ class TorchPlacementBackend:
         *,
         shard=None,
     ):
-        """Eager batched dispatch over :meth:`place_blocks`."""
-        result = self.place_blocks(batch, opts, shard=shard)
-        return lambda: result
+        """Per-instance verdicts, trimmed from the raw batched sweep."""
+        return trim_raw_dispatch(self, batch, opts, shard=shard)
 
     def dispatch_blocks_raw(
         self,
@@ -119,5 +124,21 @@ class TorchPlacementBackend:
         *,
         shard=None,
     ):
-        """No zero-copy surface here: ``None`` steers callers to the trimmed path."""
-        return None
+        """The plain batched sweep over the whole stack, run now; the
+        resolver returns the untrimmed ``(B, R)`` verdicts.  ``None`` for a
+        batch of no instance or of padded width 0.  ``shard`` is ignored."""
+        opts, f64, i32 = prepare_batch(batch, opts)
+        if f64 is None:
+            return None
+        shares, iis, t_slr, t_cfg, *surv = (torch.from_numpy(a) for a in f64)
+        n_t_eff, n_f_eff, *n_f_eff_s = (torch.from_numpy(a) for a in i32)
+        kw = dict(resume_cost=opts.resume_cost, repay_init=opts.repay_init)
+        feasible, placed, n_splits, devices_used = placement_sweep_batch(
+            shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff, **kw
+        )
+        if opts.resilience:
+            feasible = feasible & placement_sweep_batch(
+                shares, iis, surv[0], surv[1], n_t_eff, n_f_eff_s[0], **kw
+            )[0]
+        result = tuple(o.numpy() for o in (feasible, placed, n_splits, devices_used))
+        return lambda: result

@@ -20,6 +20,11 @@ double-buffered: block k+1 is enumerated and enqueued while block k's
 verdicts come back.  The facade bundles Alg 1 + Alg 2 + Alg 3 and reports
 the statistics the paper quotes (|TSS|, |TFS|, |TNFS|, placement rejects,
 chosen index).
+
+:meth:`PADPSFRScheduler.schedule_many` runs many independent instances as
+one lockstep walk: each round packs every live instance's next block into
+one :class:`InstanceBatch` and sweeps it in one launch of the instance-axis
+kernel on ``"cuda"`` (the plain batched sweep on ``"torch"``).
 """
 
 from __future__ import annotations
@@ -40,18 +45,22 @@ from .feasibility import (
 )
 from .placement import PlacementPlan, place_combo
 from .placement_backends import (
+    InstanceBatch,
     PlacementBackend,
     PlacementOptions,
+    dispatch_instance_blocks,
     get_backend,
     resolve_engine,
 )
 from .task import FleetSpec, Task, TaskSetCombo, combo_count
 
 __all__ = [
+    "ScheduleInstance",
     "ScheduleResult",
     "WalkStats",
     "block_ramp",
     "select_lowest_power",
+    "select_lowest_power_batched",
     "PADPSFRScheduler",
 ]
 
@@ -117,6 +126,22 @@ class WalkStats:
         }
 
 
+@dataclasses.dataclass(frozen=True)
+class ScheduleInstance:
+    """One independent scheduling problem for :meth:`PADPSFRScheduler.schedule_many`.
+
+    ``fleet=None`` inherits the scheduler's own fleet — the common
+    what-if shape (same pod, many candidate task mixes); an explicit
+    fleet models a different pod sharing the batched sweep.
+    """
+
+    tasks: tuple[Task, ...]
+    fleet: FleetSpec | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "tasks", tuple(self.tasks))
+
+
 @dataclasses.dataclass
 class ScheduleResult:
     feasible: bool
@@ -176,6 +201,49 @@ def select_lowest_power(
     if winner is None:
         return None, None, -1, rejects
     return winner[0], winner[1], winner[2], rejects
+
+
+def select_lowest_power_batched(
+    combos_by_power: Iterable[TaskSetCombo],
+    tasks: Sequence[Task],
+    fleet: FleetSpec,
+    *,
+    count_all_rejects: bool = False,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    backend: str | PlacementBackend = "cuda",
+    walk_stats: WalkStats | None = None,
+    **placement_kw,
+) -> tuple[TaskSetCombo | None, PlacementPlan | None, int, int]:
+    """Alg 2 over vectorized TFS blocks — same contract as
+    :func:`select_lowest_power`.
+
+    Chops a per-row :class:`TaskSetCombo` stream into fixed blocks for the
+    placement backend (``"cuda"`` by default; ``"torch"`` on the CPU).  The
+    scheduler facade feeds the walk from the block-native enumerator
+    instead, which skips the per-row objects; this entry point serves
+    external combo streams.
+    """
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+
+    def blocks():
+        stream = iter(combos_by_power)
+        while True:
+            block = list(itertools.islice(stream, block_size))
+            if not block:
+                return
+            yield [c.shares for c in block], block
+
+    return _walk_tfs_blocks(
+        blocks(),
+        lambda block, r: block[r],
+        tasks,
+        fleet,
+        backend=backend,
+        count_all_rejects=count_all_rejects,
+        walk_stats=walk_stats,
+        **placement_kw,
+    )
 
 
 def _walk_tfs_blocks(
@@ -330,6 +398,29 @@ def _block_size_schedule(block_size: int | None) -> Iterator[int]:
 
 _GATHER_CHUNK = 4096
 
+# Lockstep many-walk block coalescing: each round block covers this many
+# solo-schedule blocks, bounded so one packed round (B instances x R
+# rows) stays under _MANY_ROUND_ROWS total rows of float64 shares.
+_MANY_BLOCK_SCALE = 8
+_MANY_ROUND_ROWS = 1 << 18
+
+
+def _coalesced_sizes(sizes: Iterator[int], rcap: int) -> Iterator[int]:
+    """The many-walk's round-block schedule: the solo schedule, coalesced.
+
+    Each round block covers ``_MANY_BLOCK_SCALE`` solo blocks — one
+    round's fixed cost is shared by the whole batch, so the batched
+    walk's sweet spot is a coarser granularity than a solo walk's, but
+    not *too* coarse: rows past the winner are wasted sweep work, so the
+    factor stays moderate.  Clamped to ``rcap`` rows so a packed round
+    stays within the row budget, and never below the solo size (a user
+    who pinned big blocks keeps them).  Verdicts, ranks and reject counts
+    are block-size invariant, so this only changes how many rounds a walk
+    takes — never what it returns.
+    """
+    for s in sizes:
+        yield max(s, min(s * _MANY_BLOCK_SCALE, rcap))
+
 
 def _sorted_tfs_blocks(feas: FeasibilityResult, sizes: Iterator[int]):
     """Yield ``(shares_rows, idx_rows)`` blocks of the power-sorted TFS.
@@ -419,6 +510,161 @@ def _select_streaming_blocks(
         walk_stats=walk_stats,
         **placement_kw,
     )
+
+
+@dataclasses.dataclass
+class _InstanceWalk:
+    """One instance's private bookkeeping inside the lockstep many-walk.
+
+    Mirrors :func:`_walk_tfs_blocks`' locals exactly — same rank/reject
+    accounting, same per-instance block-size ramp — so a batch of one is
+    field-identical to a solo walk.
+    """
+
+    index: int  # position in the caller's instance list
+    tasks: tuple[Task, ...]
+    fleet: FleetSpec
+    stream: Iterator  # yields (shares_rows, ref)
+    materialize: object  # (ref, row) -> TaskSetCombo
+    feas: FeasibilityResult | None  # exhaustive-path counts, else None
+    iis: list[float] = dataclasses.field(default_factory=list)
+    slr_arr: np.ndarray | None = None  # fleet.t_slr_arr, hoisted once
+    cfg_arr: np.ndarray | None = None  # fleet.t_cfg_arr, hoisted once
+    rank_base: int = 0
+    rejects: int = 0
+    winner: "tuple[TaskSetCombo, PlacementPlan, int] | None" = None
+    done: bool = False  # winner known and no full-reject count requested
+
+
+def _walk_many_tfs_blocks(
+    walks: "list[_InstanceWalk]",
+    *,
+    backend: PlacementBackend,
+    count_all_rejects: bool,
+    shard: int | str | None = None,
+    walk_stats: WalkStats | None = None,
+    **placement_kw,
+) -> None:
+    """Lockstep Alg-2 walk over many instances' TFS blocks.
+
+    Each round pulls the next block from every live instance's own
+    stream (each on its own size ramp, exactly as a solo walk would),
+    packs them into one :class:`InstanceBatch`, and dispatches the whole
+    round through the backend's raw fleet-parallel surface — on
+    ``"cuda"`` one kernel launch per round (two under ``resilience=k``)
+    instead of one per instance-block.  A round the raw surface cannot
+    take (padded width 0) goes through the trimmed surface
+    (:func:`dispatch_instance_blocks`).  Rounds are double-buffered like
+    the solo walk's blocks when the backend dispatches asynchronously.
+
+    Per-instance winner/rank/reject bookkeeping is byte-for-byte the
+    solo walk's (``resolve_oldest``'s accounting applied to that
+    instance's slice of the round), and blocks of one instance resolve
+    strictly in that instance's rank order — so each ``_InstanceWalk``
+    finishes exactly as if it had walked alone.  Results are left on the
+    walks (``winner``/``rejects``); the caller builds ``ScheduleResult``s.
+    """
+    opts = PlacementOptions(**placement_kw)
+    stats = walk_stats if walk_stats is not None else WalkStats()
+    # Same declared-pipelining rule as the solo walk: eager engines get depth 1.
+    depth = PIPELINE_DEPTH if backend.async_dispatch else 1
+    now = time.perf_counter
+
+    # (raw, resolver, entries) per round; entries = [(walk, ref, base, n_rows)].
+    pending: collections.deque = collections.deque()
+
+    def apply_verdict(w, ref, base, n_rows, has_feas, first, n_feas, feas_row):
+        """One entry's solo-walk bookkeeping, from precomputed reductions.
+
+        ``feas_row`` is a zero-arg thunk for the entry's live (n_rows,)
+        feasibility vector — only the rare winning-block path under
+        ``count_all_rejects`` actually needs the per-row bits.
+        """
+        if w.done:
+            return  # abandoned in-flight block of a finished walk
+        if w.winner is None:
+            if has_feas:
+                r = first
+                t0 = now()
+                combo = w.materialize(ref, r)
+                plan = place_combo(combo, w.tasks, w.fleet, **placement_kw)
+                stats.materialize_us += (now() - t0) * 1e6
+                w.winner = (combo, plan, base + r)
+                w.rejects += r
+                if count_all_rejects:
+                    w.rejects += int((~feas_row()[r:]).sum())
+                else:
+                    w.done = True
+            else:
+                w.rejects += n_rows
+        else:
+            w.rejects += n_rows - n_feas
+
+    def resolve_round() -> None:
+        raw, resolver, entries = pending.popleft()
+        t0 = now()
+        results = resolver()
+        stats.sync_us += (now() - t0) * 1e6
+        if raw:
+            # Raw surface: one vectorized reduction pass over the round's
+            # (B, R) verdict block instead of B trimmed result objects;
+            # rows beyond each entry's live count are padding and masked.
+            nb = len(entries)
+            feas2d = results[0][:nb].astype(bool, copy=False)
+            n_rows_arr = np.fromiter((e[3] for e in entries), dtype=np.int64, count=nb)
+            live2d = feas2d & (np.arange(feas2d.shape[1]) < n_rows_arr[:, None])
+            has_l = live2d.any(axis=1).tolist()
+            first_l = np.argmax(live2d, axis=1).tolist()
+            nfeas_l = live2d.sum(axis=1).tolist()
+            for k, (w, ref, base, n_rows) in enumerate(entries):
+                apply_verdict(
+                    w, ref, base, n_rows, has_l[k], first_l[k], nfeas_l[k],
+                    lambda k=k, n=n_rows: live2d[k, :n],
+                )
+        else:
+            for (w, ref, base, n_rows), bp in zip(entries, results, strict=True):
+                r = bp.first_feasible()
+                apply_verdict(
+                    w, ref, base, n_rows, r >= 0, r,
+                    int(bp.feasible.sum()), lambda bp=bp: bp.feasible,
+                )
+
+    live = list(walks)
+    while live:
+        entries = []
+        blocks = []
+        t0 = now()
+        for w in live[:]:
+            if w.done:
+                live.remove(w)
+                continue
+            item = next(w.stream, None)
+            if item is None:
+                live.remove(w)  # stream exhausted; verdicts may be in flight
+                continue
+            shares, ref = item
+            n_rows = len(shares)
+            entries.append((w, ref, w.rank_base, n_rows))
+            blocks.append((shares, w.iis, w.slr_arr, w.cfg_arr))
+            w.rank_base += n_rows
+            stats.rows += n_rows
+            stats.block_sizes.append(n_rows)
+        stats.enumerate_us += (now() - t0) * 1e6
+        if not entries:
+            break
+        t0 = now()
+        batch = InstanceBatch.pack(blocks)
+        raw = backend.dispatch_blocks_raw(batch, opts, shard=shard)
+        if raw is not None:
+            pending.append((True, raw, entries))
+        else:
+            resolver = dispatch_instance_blocks(backend, batch, opts, shard=shard)
+            pending.append((False, resolver, entries))
+        stats.place_us += (now() - t0) * 1e6
+        while len(pending) >= depth:
+            resolve_round()
+    while pending:
+        resolve_round()
 
 
 class PADPSFRScheduler:
@@ -580,4 +826,170 @@ class PADPSFRScheduler:
             n_tnfs=n_tnfs,
             n_placement_rejects=rejects,
             total_power=combo.total_power if combo else float("inf"),
+        )
+
+    def _coerce_instance(self, inst) -> ScheduleInstance:
+        if isinstance(inst, ScheduleInstance):
+            return inst
+        return ScheduleInstance(tasks=tuple(inst))
+
+    def _instance_walk(
+        self,
+        index: int,
+        inst: ScheduleInstance,
+        n_batch: int = 1,
+        resilience: int = 0,
+    ) -> _InstanceWalk:
+        """Build one instance's block stream for the lockstep many-walk.
+
+        Same source selection and same block producers as :meth:`schedule`
+        (exhaustive shares-matrix gathers or the streaming block-native
+        enumerator, each on its own geometric ramp) so a batch of one
+        replays the solo walk exactly.
+
+        For ``n_batch > 1`` the size schedule is coalesced
+        (:func:`_coalesced_sizes`): a round's fixed cost — pack, staging,
+        launch, resolve — is shared by the whole batch.  Verdicts, ranks
+        and reject counts are block-size *invariant*, so coalescing never
+        changes results — only ``WalkStats.block_sizes`` records the
+        coarser schedule.
+        """
+        tasks = inst.tasks
+        fleet = inst.fleet if inst.fleet is not None else self.fleet
+        sizes = _block_size_schedule(self.block_size)
+        if n_batch > 1:
+            sizes = _coalesced_sizes(sizes, max(1, _MANY_ROUND_ROWS // n_batch))
+        if self._use_exhaustive(tasks):
+            feas = search_feasible(tasks, fleet, resilience=resilience)
+            stream = _sorted_tfs_blocks(feas, sizes)
+            materialize = lambda idx, r: feas.combo_at(int(idx[r]))  # noqa: E731
+        else:
+            feas = None
+
+            def blocks():
+                for blk in iter_feasible_pruned_blocks(
+                    tasks, fleet, sizes, resilience=resilience
+                ):
+                    yield blk.shares, blk
+
+            stream = blocks()
+            materialize = lambda blk, r: blk.materialize(r)  # noqa: E731
+        return _InstanceWalk(
+            index=index,
+            tasks=tasks,
+            fleet=fleet,
+            stream=stream,
+            materialize=materialize,
+            feas=feas,
+            iis=[t.init_interval for t in tasks],
+            slr_arr=fleet.t_slr_arr,
+            cfg_arr=fleet.t_cfg_arr,
+        )
+
+    def schedule_many(
+        self,
+        instances: Sequence["ScheduleInstance | Sequence[Task]"],
+        *,
+        shard: int | str | None = None,
+        count_all_rejects: bool = False,
+        walk_stats: WalkStats | None = None,
+        **placement_kw,
+    ) -> list[ScheduleResult]:
+        """Schedule many independent instances as one batched program.
+
+        ``instances`` is a sequence of :class:`ScheduleInstance` (or bare
+        task sequences, which inherit this scheduler's fleet).  Each
+        round of the lockstep walk packs every live instance's next TFS
+        block into one :class:`InstanceBatch` and sweeps them through the
+        backend's fleet-parallel surface — on ``"cuda"`` one launch of the
+        instance-axis kernel per round (two under ``resilience=k``)
+        instead of one launch per instance-block.
+
+        Guarantees (tested per engine in ``tests/test_torch_fleet_parallel.py``):
+
+        * ``schedule_many([])`` returns ``[]``;
+        * ``schedule_many([i])[0]`` equals ``schedule(i.tasks)`` field
+          for field, for every engine;
+        * results are per-instance — an infeasible instance yields its
+          own ``feasible=False`` result without disturbing, or being
+          disturbed by, its batchmates;
+        * verdicts are bit-identical to the loop of solo schedules
+          regardless of batch composition.
+
+        ``shard`` is accepted and ignored: one launch runs on one card.
+        The scalar engine has no batched surface and simply loops solo
+        schedules.  ``walk_stats`` aggregates all instances' phases into
+        one :class:`WalkStats` (block sizes interleave round-robin).
+
+            >>> from repro_torch.core.task import FleetSpec, Task, TaskVariant
+            >>> def v(th, pw):
+            ...     return TaskVariant(cu=1, throughput=th, power=pw)
+            >>> a = Task("a", period=10.0, data=20.0, init_interval=1.0,
+            ...          variants=(v(2.0, 5.0), v(4.0, 8.0)))
+            >>> b = Task("b", period=10.0, data=40.0, init_interval=1.0,
+            ...          variants=(v(4.0, 4.0), v(8.0, 6.0)))
+            >>> fleet = FleetSpec(n_f=2, t_slr=30.0, t_cfg=1.0)
+            >>> sched = PADPSFRScheduler(fleet, engine="torch")
+            >>> lo, hi = sched.schedule_many([[a], [a, b]])
+            >>> (lo.total_power, hi.total_power)
+            (5.0, 11.0)
+        """
+        insts = [self._coerce_instance(x) for x in instances]
+        if not insts:
+            return []
+        resilience = _validate_resilience(placement_kw)
+        if self.engine == "scalar":
+            # The row-at-a-time oracle has no block surface to batch; a
+            # loop of solo schedules *is* its fleet-parallel semantics.
+            return [self._solo_schedule(i, count_all_rejects, placement_kw) for i in insts]
+        # Instances whose (own) fleet cannot survive k failures are
+        # answered up front, exactly like the solo path — no walk entry.
+        results: list[ScheduleResult | None] = [None] * len(insts)
+        walks = []
+        for i, inst in enumerate(insts):
+            fleet = inst.fleet if inst.fleet is not None else self.fleet
+            if resilience >= fleet.n_f and inst.tasks:
+                results[i] = _resilience_infeasible_result(inst.tasks)
+            else:
+                walks.append(
+                    self._instance_walk(i, inst, n_batch=len(insts), resilience=resilience)
+                )
+        _walk_many_tfs_blocks(
+            walks,
+            backend=self._backend,
+            count_all_rejects=count_all_rejects,
+            shard=shard,
+            walk_stats=walk_stats,
+            **placement_kw,
+        )
+        for w in walks:
+            combo, plan, rank = w.winner if w.winner is not None else (None, None, -1)
+            results[w.index] = ScheduleResult(
+                feasible=combo is not None,
+                combo=combo,
+                plan=plan,
+                chosen_rank=rank,
+                n_tss=combo_count(w.tasks),
+                n_tfs=w.feas.n_tfs if w.feas is not None else -1,
+                n_tnfs=w.feas.n_tnfs if w.feas is not None else -1,
+                n_placement_rejects=w.rejects,
+                total_power=combo.total_power if combo else float("inf"),
+            )
+        return results
+
+    def _solo_schedule(
+        self, inst: ScheduleInstance, count_all_rejects: bool, placement_kw: dict
+    ) -> ScheduleResult:
+        """One instance through :meth:`schedule`, honouring its fleet."""
+        sched = self
+        if inst.fleet is not None and inst.fleet is not self.fleet:
+            sched = PADPSFRScheduler(
+                inst.fleet,
+                exhaustive=self.exhaustive,
+                exhaustive_limit=self.exhaustive_limit,
+                engine=self.engine,
+                block_size=self.block_size,
+            )
+        return sched.schedule(
+            inst.tasks, count_all_rejects=count_all_rejects, **placement_kw
         )

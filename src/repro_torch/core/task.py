@@ -273,6 +273,30 @@ class FleetSpec:
             devices=tuple(self.devices[int(j)] for j in keep),
         )
 
+    def with_devices(self, n_f: int) -> "FleetSpec":
+        """Resize the fleet.  Heterogeneous fleets repeat their device
+        pattern round-robin (the sweep semantics of Figs 5-7)."""
+        if not self.devices:
+            return dataclasses.replace(self, n_f=n_f)
+        profiles = tuple(self.devices[j % len(self.devices)] for j in range(n_f))
+        return dataclasses.replace(self, n_f=n_f, devices=profiles)
+
+    def with_t_cfg(self, t_cfg: float) -> "FleetSpec":
+        """Rescale reconfiguration cost (the Fig 5-7 t_cfg sweeps).
+        Heterogeneous device cfgs scale proportionally to preserve the
+        class mix (a GPU's ~0 cfg stays ~0).  A heterogeneous fleet whose
+        devices all reconfigure for free has nothing to rescale and is
+        returned unchanged."""
+        if not self.devices:
+            return dataclasses.replace(self, t_cfg=t_cfg)
+        if self.t_cfg == 0:
+            return self
+        scale = t_cfg / self.t_cfg
+        profiles = tuple(
+            dataclasses.replace(d, t_cfg=d.t_cfg * scale) for d in self.devices
+        )
+        return dataclasses.replace(self, t_cfg=t_cfg, devices=profiles)
+
 
 @dataclasses.dataclass(frozen=True)
 class TaskSetCombo:

@@ -1,11 +1,12 @@
-"""Alg-2 TFS-block placement sweep: the CUDA kernel and its plain version.
+"""Alg-2 TFS-block placement sweeps: the CUDA kernels and their plain versions.
 
-The port of ``placement_sweep_pallas`` (the JAX package's
-``kernels/placement_step.py``).  Both functions here take a ``(B, n_t)``
-float64 shares block with the ``(n_t,)`` per-task initialization
-intervals and the ``(n_f,)`` per-device capacity / reconfiguration tables,
-and return ``(feasible, placed_tasks, n_splits, devices_used)`` as ``(B,)``
-tensors (bool, int32, int32, int32) on the input's device:
+The port of ``placement_sweep_pallas`` and ``placement_sweep_batch_pallas``
+(the JAX package's ``kernels/placement_step.py``).
+
+Single instance: a ``(B, n_t)`` float64 shares block with the ``(n_t,)``
+per-task initialization intervals and the ``(n_f,)`` per-device capacity /
+reconfiguration tables gives ``(feasible, placed_tasks, n_splits,
+devices_used)`` as ``(B,)`` tensors (bool, int32, int32, int32):
 
 * :func:`placement_sweep_plain` — the sweep in torch ops, one masked
   carry/split step over all rows per iteration; runs on any device.  The
@@ -13,9 +14,18 @@ tensors (bool, int32, int32, int32) on the input's device:
 * :func:`placement_sweep_cuda` — the hand-written kernel
   (``csrc/placement_sweep.cu``), one thread per row, CUDA tensors only.
 
-Both replay the scalar oracle's float64 operations in the same order, so
-their outputs are equal bit for bit.  Degenerate ``n_t == 0`` / ``n_f ==
-0`` blocks are the caller's (``placement_backends.base.prepare_block``).
+Fleet-parallel: a ``(B, R, n_t)`` stack of B instances' blocks, padded to
+common widths, with per-instance tables ``iis (B, n_t)``, ``t_slr`` /
+``t_cfg (B, n_f)`` and int32 live counts ``n_t_eff`` / ``n_f_eff (B,)``,
+gives the same four outputs as ``(B, R)`` tensors:
+
+* :func:`placement_sweep_batch_plain` — the plain version;
+* :func:`placement_sweep_batch_cuda` — the hand-written kernel
+  (``csrc/placement_sweep_batch.cu``), one thread per row.
+
+All four replay the scalar oracle's float64 operations in the same order,
+so kernel and plain version agree bit for bit.  Degenerate ``n_t == 0`` /
+``n_f == 0`` widths are the caller's (``placement_backends.base``).
 """
 
 from __future__ import annotations
@@ -26,21 +36,30 @@ import torch
 
 from . import _build
 
-__all__ = ["placement_sweep_plain", "placement_sweep_cuda"]
+__all__ = [
+    "placement_sweep_plain",
+    "placement_sweep_cuda",
+    "placement_sweep_batch_plain",
+    "placement_sweep_batch_cuda",
+]
 
 _PLACE_EPS = 1e-9  # == repro_torch.core.placement._EPS
-_THREADS = 256  # == kThreads in csrc/placement_sweep.cu
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
+_INT_MAX = 2**31 - 1  # the launchers take B and R as C ints
+
+
+def _check_tensors(ref: torch.Tensor, dtype: torch.dtype, **named) -> None:
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} (the exact contract), got {t.dtype}")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, shares on {ref.device}")
 
 
 def _check(shares, iis, t_slr, t_cfg) -> tuple[int, int, int]:
-    for name, t in (("shares", shares), ("iis", iis), ("t_slr", t_slr), ("t_cfg", t_cfg)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-        if t.dtype != torch.float64:
-            raise TypeError(f"{name} must be float64 (the exact contract), got {t.dtype}")
-        if t.device != shares.device:
-            raise ValueError(f"{name} is on {t.device}, shares on {shares.device}")
+    _check_tensors(shares, torch.float64, shares=shares, iis=iis, t_slr=t_slr, t_cfg=t_cfg)
     if shares.ndim != 2:
         raise ValueError(f"shares must be (B, n_t), got {tuple(shares.shape)}")
     B, n_t = shares.shape
@@ -55,34 +74,59 @@ def _check(shares, iis, t_slr, t_cfg) -> tuple[int, int, int]:
     return B, n_t, n_f
 
 
-def _plain_sweep(shares, iis, t_slr, t_cfg, resume_cost, repay_init):
-    """The plain sweep, plus the number of row-steps it took (live rows
-    summed over iterations: the work the kernel does on these inputs)."""
-    B, n_t, n_f = _check(shares, iis, t_slr, t_cfg)
+def _check_batch(shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff) -> tuple[int, int, int, int]:
+    _check_tensors(shares, torch.float64, shares=shares, iis=iis, t_slr=t_slr, t_cfg=t_cfg)
+    _check_tensors(shares, torch.int32, n_t_eff=n_t_eff, n_f_eff=n_f_eff)
+    if shares.ndim != 3:
+        raise ValueError(f"shares must be (B, R, n_t), got {tuple(shares.shape)}")
+    B, R, n_t = shares.shape
+    n_f = t_slr.shape[1] if t_slr.ndim == 2 else -1
+    if (
+        iis.shape != (B, n_t) or t_slr.ndim != 2 or t_slr.shape[0] != B
+        or t_cfg.shape != t_slr.shape or n_t_eff.shape != (B,) or n_f_eff.shape != (B,)
+    ):
+        raise ValueError(
+            f"tables must be iis ({B}, {n_t}), t_slr/t_cfg ({B}, n_f), counts ({B},); got "
+            f"{tuple(iis.shape)}, {tuple(t_slr.shape)}, {tuple(t_cfg.shape)}, "
+            f"{tuple(n_t_eff.shape)}, {tuple(n_f_eff.shape)}"
+        )
+    if n_t == 0 or n_f == 0:
+        raise ValueError("batches of padded width 0 are answered by prepare_block")
+    return B, R, n_t, n_f
+
+
+def _plain_sweep_batch(shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff, resume_cost, repay_init):
+    """The plain batched sweep, plus the number of row-steps it took (live
+    rows summed over iterations: the work the kernel does on these inputs)."""
+    B, R, n_t, n_f = _check_batch(shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff)
+    nte = n_t_eff.long()[:, None]  # (B, 1): broadcast over each instance's rows
+    nfe = n_f_eff.long()[:, None]
+    if bool(((nte < 0) | (nte > n_t) | (nfe < 0) | (nfe > n_f)).any()):
+        raise ValueError(f"live counts must lie in [0, {n_t}] / [0, {n_f}]")
     dev = shares.device
-    j = torch.zeros(B, dtype=torch.int64, device=dev)  # device cursor
-    k = torch.zeros(B, dtype=torch.int64, device=dev)  # task cursor (paper's sti)
-    c = t_slr[0].expand(B).clone()  # remaining capacity
-    tsd = torch.zeros(B, dtype=torch.float64, device=dev)  # carried share of task k
-    dead = torch.zeros(B, dtype=torch.bool, device=dev)
-    n_splits = torch.zeros(B, dtype=torch.int64, device=dev)
-    devices_used = torch.zeros(B, dtype=torch.int64, device=dev)
+    j = torch.zeros((B, R), dtype=torch.int64, device=dev)  # device cursor
+    k = torch.zeros((B, R), dtype=torch.int64, device=dev)  # task cursor (paper's sti)
+    c = t_slr[:, :1].expand(B, R).clone()  # remaining capacity
+    tsd = torch.zeros((B, R), dtype=torch.float64, device=dev)  # carried share of task k
+    dead = torch.zeros((B, R), dtype=torch.bool, device=dev)
+    n_splits = torch.zeros((B, R), dtype=torch.int64, device=dev)
+    devices_used = torch.zeros((B, R), dtype=torch.int64, device=dev)
     zero = torch.zeros_like(tsd)
     resume = torch.full_like(tsd, float(resume_cost))
     steps = 0
     for _ in range(n_t + n_f):  # every live step advances j or k
-        live = ~dead & (k < n_t)
+        live = ~dead & (k < nte)
         n_live = int(live.sum())
         if n_live == 0:
             break
         steps += n_live
         kk = k.clamp(max=n_t - 1)  # safe gather index once k == n_t
         jj = j.clamp(max=n_f - 1)  # safe gather index once j == n_f
-        ii = iis[kk]
-        tcfg = t_cfg[jj]
+        ii = iis.gather(1, kk)
+        tcfg = t_cfg.gather(1, jj)
         carried = tsd > _PLACE_EPS
         extra = torch.where(carried, ii if repay_init else resume, zero)
-        rem = shares.gather(1, kk[:, None])[:, 0] - tsd
+        rem = shares.gather(2, kk[..., None])[..., 0] - tsd
         avail = (c - tcfg) - extra
         can_start = (c > tcfg + ii + _PLACE_EPS) & (avail > _PLACE_EPS) & live
         split = can_start & (rem - avail > _PLACE_EPS)
@@ -100,14 +144,27 @@ def _plain_sweep(shares, iis, t_slr, t_cfg, resume_cost, repay_init):
         k = k + fits
         tsd = torch.where(fits, zero, tsd)
         # Device advance: no-start, split carry, or closure after a fit.
+        # The instance's live counts end a row, not the padded widths.
         advance = (~can_start | split | closure) & live
         j = j + advance
-        dead = dead | (advance & (j >= n_f) & (k < n_t))
-        refill = advance & (j < n_f)
-        c = torch.where(refill, t_slr[j.clamp(max=n_f - 1)], c)
-    feasible = (k >= n_t) & ~dead
+        dead = dead | (advance & (j >= nfe) & (k < nte))
+        refill = advance & (j < nfe)
+        c = torch.where(refill, t_slr.gather(1, j.clamp(max=n_f - 1)), c)
+    feasible = (k >= nte) & ~dead
     outs = (feasible, k.to(torch.int32), n_splits.to(torch.int32), devices_used.to(torch.int32))
     return outs, steps
+
+
+def _plain_sweep(shares, iis, t_slr, t_cfg, resume_cost, repay_init):
+    """The plain single-instance sweep and its row-steps: the batched one
+    over a stack of one instance whose live counts are its full widths."""
+    B, n_t, n_f = _check(shares, iis, t_slr, t_cfg)
+    counts = torch.tensor([[n_t], [n_f]], dtype=torch.int32, device=shares.device)
+    outs, steps = _plain_sweep_batch(
+        shares[None], iis[None], t_slr[None], t_cfg[None], counts[0], counts[1],
+        resume_cost, repay_init,
+    )
+    return tuple(o[0] for o in outs), steps
 
 
 def placement_sweep_plain(
@@ -128,18 +185,67 @@ def placement_sweep_plain(
     return _plain_sweep(shares, iis, t_slr, t_cfg, resume_cost, repay_init)[0]
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = lib.placement_sweep_f64
+def placement_sweep_batch_plain(
+    shares: torch.Tensor,
+    iis: torch.Tensor,
+    t_slr: torch.Tensor,
+    t_cfg: torch.Tensor,
+    n_t_eff: torch.Tensor,
+    n_f_eff: torch.Tensor,
+    *,
+    resume_cost: float = 0.0,
+    repay_init: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fleet-parallel sweep in plain torch ops, on the inputs' device.
+
+    Mirrors ``ref.placement_sweep_batch_ref``: instance ``b``'s rows run the
+    single-instance sweep on its own tables, live while ``k < n_t_eff[b]``
+    and dying when the device cursor reaches ``n_f_eff[b]`` with tasks left,
+    so padded columns and slots never enter a live decision.  Padded rows
+    (zero shares) are computed like any other; the caller masks them.
+    """
+    return _plain_sweep_batch(
+        shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff, resume_cost, repay_init
+    )[0]
+
+
+def _launch(name: str, fn_argtypes: list, args: tuple, device: torch.device) -> None:
+    """Call ``csrc/<name>.cu``'s launcher on the current stream of
+    ``device``; raise on the error code it returns."""
+    lib = _build.load_library(name)
+    fn = getattr(lib, f"{name}_f64")
+    err_string = getattr(lib, f"{name}_error_string")
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [
-            p, p, p, p, ctypes.c_double, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, p, p, p, p, p,
-        ]
+        fn.argtypes = fn_argtypes
         fn.restype = ctypes.c_int
-        lib.placement_sweep_error_string.argtypes = [ctypes.c_int]
-        lib.placement_sweep_error_string.restype = ctypes.c_char_p
-    return lib
+        err_string.argtypes = [ctypes.c_int]
+        err_string.restype = ctypes.c_char_p
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {err_string(err).decode()} ({err})")
+
+
+def _check_cuda(smem: int, **named: torch.Tensor) -> None:
+    for name, t in named.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if smem > _MAX_SMEM:
+        raise ValueError(f"tables need {smem} bytes of shared memory (> {_MAX_SMEM})")
+
+
+_P = ctypes.c_void_p
+_SWEEP_ARGTYPES = [
+    _P, _P, _P, _P, ctypes.c_double, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
+]
+_BATCH_ARGTYPES = [
+    _P, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
+]
 
 
 def placement_sweep_cuda(
@@ -158,14 +264,7 @@ def placement_sweep_cuda(
     0`` block returns empty outputs and launches nothing).
     """
     B, n_t, n_f = _check(shares, iis, t_slr, t_cfg)
-    if shares.device.type != "cuda":
-        raise ValueError(f"placement_sweep_cuda needs CUDA tensors, got {shares.device}")
-    for name, t in (("shares", shares), ("iis", iis), ("t_slr", t_slr), ("t_cfg", t_cfg)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    smem = 8 * (n_t + 2 * n_f)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"tables need {smem} bytes of shared memory (> {_MAX_SMEM})")
+    _check_cuda(8 * (n_t + 2 * n_f), shares=shares, iis=iis, t_slr=t_slr, t_cfg=t_cfg)
     dev = shares.device
     feasible = torch.empty(B, dtype=torch.bool, device=dev)
     placed = torch.empty(B, dtype=torch.int32, device=dev)
@@ -174,20 +273,61 @@ def placement_sweep_cuda(
     outs = (feasible, placed, n_splits, devices_used)
     if B == 0:
         return outs  # a grid of zero blocks is a launch error
-    lib = _bind(_build.load_library("placement_sweep"))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.placement_sweep_f64(
-            shares.data_ptr(), iis.data_ptr(), t_slr.data_ptr(), t_cfg.data_ptr(),
-            float(resume_cost), int(bool(repay_init)), B, n_t, n_f,
-            feasible.data_ptr(), placed.data_ptr(), n_splits.data_ptr(),
-            devices_used.data_ptr(), stream,
-        )
-    if err != 0:
-        msg = lib.placement_sweep_error_string(err).decode()
-        raise RuntimeError(f"placement_sweep kernel launch failed: {msg} ({err})")
+    _launch("placement_sweep", _SWEEP_ARGTYPES, (
+        shares.data_ptr(), iis.data_ptr(), t_slr.data_ptr(), t_cfg.data_ptr(),
+        float(resume_cost), int(bool(repay_init)), B, n_t, n_f,
+        *(o.data_ptr() for o in outs),
+    ), dev)
     placement_sweep_cuda.launches += 1
     return outs
 
 
 placement_sweep_cuda.launches = 0
+
+
+def placement_sweep_batch_cuda(
+    shares: torch.Tensor,
+    iis: torch.Tensor,
+    t_slr: torch.Tensor,
+    t_cfg: torch.Tensor,
+    n_t_eff: torch.Tensor,
+    n_f_eff: torch.Tensor,
+    *,
+    resume_cost: float = 0.0,
+    repay_init: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fleet-parallel CUDA sweep on the current stream; does not
+    synchronise.
+
+    Tables are contiguous float64 and counts contiguous int32 CUDA tensors
+    on one device.  The counts are not read back to be checked (that would
+    synchronise): the kernel clamps its gathers to the padded widths, so a
+    count outside ``[0, n_t]`` / ``[0, n_f]`` cannot read past the tables.
+    ``placement_sweep_batch_cuda.launches`` counts the launches made (an
+    empty ``B * R == 0`` stack returns empty outputs and launches nothing).
+    """
+    B, R, n_t, n_f = _check_batch(shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff)
+    _check_cuda(
+        8 * (n_t + 2 * n_f), shares=shares, iis=iis, t_slr=t_slr, t_cfg=t_cfg,
+        n_t_eff=n_t_eff, n_f_eff=n_f_eff,
+    )
+    if B > _INT_MAX or R > _INT_MAX:
+        raise ValueError(f"B = {B} and R = {R} must each fit a C int")
+    dev = shares.device
+    feasible = torch.empty((B, R), dtype=torch.bool, device=dev)
+    placed = torch.empty((B, R), dtype=torch.int32, device=dev)
+    n_splits = torch.empty((B, R), dtype=torch.int32, device=dev)
+    devices_used = torch.empty((B, R), dtype=torch.int32, device=dev)
+    outs = (feasible, placed, n_splits, devices_used)
+    if B == 0 or R == 0:
+        return outs  # a grid of zero blocks is a launch error
+    _launch("placement_sweep_batch", _BATCH_ARGTYPES, (
+        shares.data_ptr(), iis.data_ptr(), t_slr.data_ptr(), t_cfg.data_ptr(),
+        n_t_eff.data_ptr(), n_f_eff.data_ptr(), float(resume_cost),
+        int(bool(repay_init)), B, R, n_t, n_f, *(o.data_ptr() for o in outs),
+    ), dev)
+    placement_sweep_batch_cuda.launches += 1
+    return outs
+
+
+placement_sweep_batch_cuda.launches = 0

@@ -284,7 +284,14 @@ def test_record_state_is_not_ported_yet():
         PADPSFRScheduler(fleet, engine="torch").schedule(tasks, record_state=True)
 
 
-@pytest.mark.parametrize("modname", ["repro_torch.core.feasibility", "repro_torch.core.scheduler"])
+@pytest.mark.parametrize(
+    "modname",
+    [
+        "repro_torch.core.feasibility",
+        "repro_torch.core.scheduler",
+        "repro_torch.core.placement_batched",
+    ],
+)
 def test_port_doctests(modname):
     import doctest
     import importlib
