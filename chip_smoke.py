@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the PADPS-FR scheduler on one CUDA card.
+"""Drive the PyTorch/CUDA port (the PADPS-FR scheduler and the ML serving
+path behind its jobs) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -26,12 +27,32 @@ Phases (each raises on failure, so any failure exits non-zero):
    of the many-walk and of the solo loop, and the device split;
 7. ``schedule_many``'s options: a ragged heterogeneous batch with mixed
    fleets and an infeasible member under ``resilience=1`` and under the
-   preemptive resume cost, checked against the plain engine.
+   preemptive resume cost, checked against the plain engine;
+8. the flash-attention kernel against its plain version (the reference
+   kernel tests' six cases at float32 and bfloat16, and smollm-135m's
+   prefill shape), timed beside the plain version and
+   ``scaled_dot_product_attention``;
+9. the SSD-scan kernel against its plain version (the reference kernel
+   tests' four cases, final state included, and mamba2-130m's prefill
+   shape), timed beside the plain version;
+10. ``ServeEngine.generate`` at the full published widths of smollm-135m
+    (30 layers) and mamba2-130m (24 layers) in bfloat16 with seeded random
+    weights: 8 prompts of 1024 tokens, 32 greedy tokens each; one kernel
+    launch a layer in the prefill (30 flash-attention, 24 SSD-scan);
+    prefill ms, decode ms a token, tokens/s and the device split;
+11. both models at full width in float32 on the card and on the CPU (the
+    plain path) with the same weights: 2 prompts of 128 tokens and 4 decode
+    steps fed the same tokens, logits compared.
+
+Float32 matrix products run in full float32 on the card
+(``torch.backends.cuda.matmul.allow_tf32`` is set False, as is cuDNN's
+TF32 switch, though nothing here calls cuDNN).
 
 The launch counts are zeroed just before each main-path run and read just
 after it (for phase 6, around the many-walk alone: it must launch the
-fleet-parallel kernel and never the single-instance one); the comparisons
-of phase 2 are outside those windows.  The last three lines are the
+fleet-parallel kernel and never the single-instance one; for phase 10,
+around one ``generate``); the comparisons of phases 2, 8 and 9 are outside
+those windows.  The last three lines are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
 result when no CUDA device is present or when run outside a checkout of
@@ -75,6 +96,31 @@ MANY_B = 64
 TIMED_REPS = 30
 EXAMPLE1 = dict(n_tss=1024, n_tfs=620, rejects=146, rank=4, power=31.5)
 DEEP_RANK = 425399
+
+# The ML kernels' bound: the H100 SXM's dense bfloat16 tensor-core peak (NVIDIA
+# data sheet), the rate the attention and SSD products could run at.
+BF16_OPS_PER_S = 989e12
+ML_REPS = 10
+# The reference kernel tests' cases (tests/test_kernels.py), with their
+# tolerances against the plain version: 2e-5 at float32, 2e-2 at bfloat16.
+ATTN_CASES = (  # B, S, T, H, K, hd, causal, window
+    (2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 8, 8, 64, True, 0),
+    (2, 128, 128, 4, 1, 32, False, 0), (1, 256, 256, 4, 2, 64, True, 64),
+    (2, 96, 200, 4, 4, 128, False, 0), (1, 64, 64, 2, 2, 256, True, 0),
+)
+SSD_CASES = (  # B, S, nh, hp, ng, ds, chunk
+    (2, 128, 4, 16, 1, 32, 32), (1, 256, 8, 64, 2, 64, 64),
+    (2, 64, 4, 32, 4, 16, 16), (1, 128, 2, 8, 1, 8, 128),
+)
+ML_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The serving path's kernel shapes: 8 prompts of 1024 tokens through
+# smollm-135m (9 query heads, 3 kv heads of 64) and mamba2-130m (24 heads of
+# 64, one B/C group of state 128, chunks of 256).
+SMOLLM_ATTN = (8, 1024, 1024, 9, 3, 64, True, 0)
+MAMBA_SSD = (8, 1024, 24, 64, 1, 128, 256)
+SERVE = dict(batch=8, prompt=1024, new=32)
+SERVE_MODELS = {"smollm-135m": "flash_attention", "mamba2-130m": "ssd_scan"}
+CHECK = dict(batch=2, prompt=128, steps=4, rel_tol=1e-3)
 
 
 def _card() -> str:
@@ -496,8 +542,12 @@ def _counted(run):
     it; return its result and the counts read just after."""
     from repro_torch.kernels.placement_step import placement_sweep_batch_cuda, placement_sweep_cuda
 
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
     kernels = {"placement_sweep": placement_sweep_cuda,
-               "placement_sweep_batch": placement_sweep_batch_cuda}
+               "placement_sweep_batch": placement_sweep_batch_cuda,
+               "flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda}
     for fn in kernels.values():
         fn.launches = 0
     out = run()
@@ -587,18 +637,280 @@ def phase_options_many(engine: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the ML serving path: kernels 3 and 4, the two served models
+# ---------------------------------------------------------------------------
+
+
+def _ml_bound(n_ops: float, n_bytes: int) -> dict:
+    ops_ms = n_ops / BF16_OPS_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops": n_ops, "bytes": n_bytes}
+
+
+def _err(got, want, tol: float, what: str) -> float:
+    """Max |got - want|; raise where it passes atol = rtol = tol."""
+    import torch
+
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) or bool((diff > tol + tol * w.abs()).any()):
+        raise AssertionError(f"{what}: max abs err {float(diff.max())} over tolerance {tol}")
+    return float(diff.max())
+
+
+def _attn_inputs(case, dtype, device, seed):
+    import torch
+
+    B, S, T, H, K, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(sh), dtype=torch.float32).to(device, dtype)
+            for sh in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd))]
+
+
+def phase_flash_vs_plain(device) -> dict:
+    """flash_attention: kernel vs plain version on the card at the reference
+    cases and smollm-135m's prefill shape; timed there beside the plain
+    version and scaled_dot_product_attention (the yardstick; the port never
+    calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    errs = {}
+    for i, case in enumerate(ATTN_CASES):
+        for name, tol in ML_TOL.items():
+            q, k, v = _attn_inputs(case, getattr(torch, name), device, i)
+            kw = dict(causal=case[6], window=case[7])
+            got, want = flash_attention_cuda(q, k, v, **kw), flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            errs[f"{case} {name}"] = _err(got, want, tol, f"flash_attention {case} {name}")
+    print(f"[kernel] flash_attention: {len(errs)} reference cases within tolerance, max abs err "
+          f"f32 {max(e for c, e in errs.items() if c.endswith('float32')):.3g}, "
+          f"bf16 {max(e for c, e in errs.items() if c.endswith('bfloat16')):.3g}", flush=True)
+
+    B, S, T, H, K, hd = SMOLLM_ATTN[:6]
+    q, k, v = _attn_inputs(SMOLLM_ATTN, torch.bfloat16, device, 99)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    err = _err(got, want, ML_TOL["bfloat16"], "flash_attention smollm-135m prefill shape")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))  # SDPA's (B, heads, S, hd) views
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
+    ms = _events_ms(lambda: flash_attention_cuda(q, k, v, causal=True), ML_REPS)
+    plain_ms = _events_ms(lambda: flash_attention_plain(q, k, v, causal=True), ML_REPS)
+    library_ms = _events_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), ML_REPS)
+    visible = S * (S + 1) // 2  # causal, S == T: query i sees keys 0..i
+    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * T * K * hd)  # q, o, k, v in bf16
+    rec = {"shape": dict(zip(("B", "S", "T", "H", "K", "hd"), SMOLLM_ATTN[:6], strict=True)),
+           "dtype": "bfloat16", "max_abs_err": err, "sdpa_vs_plain_max_abs_err": lib_err,
+           "case_errs": errs, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           **_ml_bound(4 * B * H * hd * visible, n_bytes)}
+    print("[kernel] " + json.dumps({"flash_attention_timing": {
+        k: v for k, v in rec.items() if k != "case_errs"}}), flush=True)
+    return rec
+
+
+def _ssd_inputs(case, dtype, device, seed):
+    import torch
+
+    B, S, nh, hp, ng, ds = case[:6]
+    rng = np.random.default_rng(seed)
+
+    def on(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a, np.float32)).to(device, dt)
+
+    return (on(rng.standard_normal((B, S, nh, hp)), dtype),
+            on(np.logaddexp(rng.standard_normal((B, S, nh)), 0.0)),
+            on(-np.exp(rng.standard_normal(nh) * 0.3)),
+            on(rng.standard_normal((B, S, ng, ds)) * 0.3, dtype),
+            on(rng.standard_normal((B, S, ng, ds)) * 0.3, dtype),
+            on(rng.standard_normal(nh)))
+
+
+def phase_ssd_vs_plain(device) -> dict:
+    """ssd_scan: kernel vs plain version (y and the final state) on the card
+    at the reference cases and mamba2-130m's prefill shape; timed there.
+    No single PyTorch call computes the scan, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+
+    errs = {}
+    for i, case in enumerate(SSD_CASES):
+        for name, tol in ML_TOL.items():
+            args = _ssd_inputs(case, getattr(torch, name), device, i)
+            got = ssd_scan_cuda(*args, chunk=case[6], return_state=True)
+            want = ssd_scan_plain(*args, chunk=case[6], return_state=True)
+            torch.cuda.synchronize()
+            errs[f"{case} {name}"] = max(
+                _err(got[0], want[0], tol, f"ssd_scan {case} {name}: y"),
+                _err(got[1], want[1], tol, f"ssd_scan {case} {name}: state"))
+    print(f"[kernel] ssd_scan: {len(errs)} reference cases within tolerance (y and state), max "
+          f"abs err f32 {max(e for c, e in errs.items() if c.endswith('float32')):.3g}, "
+          f"bf16 {max(e for c, e in errs.items() if c.endswith('bfloat16')):.3g}", flush=True)
+
+    B, S, nh, hp, ng, ds, chunk = MAMBA_SSD
+    args = _ssd_inputs(MAMBA_SSD, torch.bfloat16, device, 98)
+    got = ssd_scan_cuda(*args, chunk=chunk, return_state=True)
+    want = ssd_scan_plain(*args, chunk=chunk, return_state=True)
+    err = max(_err(got[0], want[0], ML_TOL["bfloat16"], "ssd_scan mamba2-130m shape: y"),
+              _err(got[1], want[1], ML_TOL["bfloat16"], "ssd_scan mamba2-130m shape: state"))
+    ms = _events_ms(lambda: ssd_scan_cuda(*args, chunk=chunk, return_state=True), ML_REPS)
+    plain_ms = _events_ms(lambda: ssd_scan_plain(*args, chunk=chunk, return_state=True), ML_REPS)
+    # a chunk of L per head: L(L+1)/2 (s <= t) pairs of a ds dot and an hp
+    # axpy, then the inter-chunk term and the state update, 2 ds hp a position each
+    n_heads_chunks = B * nh * (S // chunk)
+    n_ops = n_heads_chunks * (chunk * (chunk + 1) * (ds + hp) + 4 * chunk * ds * hp)
+    # x, B, C, y in bf16; dt f32; A, D f32; final state f32
+    n_bytes = 2 * (2 * B * S * nh * hp + 2 * B * S * ng * ds) + 4 * B * S * nh + 8 * nh \
+        + 4 * B * nh * ds * hp
+    rec = {"shape": dict(zip(("B", "S", "nh", "hp", "ng", "ds", "chunk"), MAMBA_SSD, strict=True)),
+           "dtype": "bfloat16", "max_abs_err": err, "case_errs": errs, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None, **_ml_bound(n_ops, n_bytes)}
+    print("[kernel] " + json.dumps({"ssd_scan_timing": {
+        k: v for k, v in rec.items() if k != "case_errs"}}), flush=True)
+    return rec
+
+
+def _cpu_tree(tree: dict) -> dict:
+    return {k: _cpu_tree(v) if isinstance(v, dict) else v.detach().cpu() for k, v in tree.items()}
+
+
+def phase_serve(name: str, device) -> dict:
+    """ServeEngine.generate at the model's full published width in bfloat16,
+    weights from init_params with a seeded generator on the card."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeConfig, ServeEngine, make_decode_step, make_prefill_step
+    from repro_torch.serve.engine import _pad_cache_to
+
+    cfg = get_arch(name)
+    kernel = SERVE_MODELS[name]
+    B, S, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    model = Model(cfg, generator=torch.Generator(device).manual_seed(0), device=device,
+                  dtype=getattr(torch, cfg.dtype))
+    engine = ServeEngine(model, ServeConfig(max_len=S + new))
+    batch = {"tokens": torch.from_numpy(
+        np.random.default_rng(13).integers(0, cfg.vocab, (B, S)).astype(np.int32)).to(device)}
+    engine.generate(batch, 2)  # first use: cuBLAS handles, the kernels' first launch
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        out = engine.generate(batch, new)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (out, gen_s), counts = _counted(run)
+    if counts[kernel] != cfg.n_layers or any(n for k, n in counts.items() if k != kernel):
+        raise AssertionError(f"serve {name}: launches {counts}; want {kernel} == "
+                             f"{cfg.n_layers} (one a layer, in the prefill) and no other")
+    if tuple(out.shape) != (B, new) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"serve {name}: tokens {tuple(out.shape)} out of range")
+
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, state = prefill(batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(last.float()).all()):
+        raise AssertionError(f"serve {name}: prefill logits are not finite")
+    state = _pad_cache_to(state, cfg.family, S + new)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(1, new):
+        logits, state = decode(state, tok, S + t - 1)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (new - 1)
+    rec = {
+        "model": name, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+        "dtype": cfg.dtype, "params": model.n_params(), "batch": B, "prompt": S, "new": new,
+        "generate_s": gen_s, "tokens_per_s": B * new / gen_s,
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "launches": counts, "first_row": out[0, :8].tolist(),
+        "device_us": _device_split(lambda: (engine.generate(batch, 8), torch.cuda.synchronize()),
+                                   kernel=f"{kernel}_kernel"),
+    }
+    print("[serve] " + json.dumps(rec), flush=True)
+    del model, engine, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_check(name: str, device) -> dict:
+    """The full-width model at float32 on the card (kernels) and on the CPU
+    (plain path) with the same weights: prefill, then decode steps fed the
+    same tokens (the CPU's argmax), logits within rel_tol of max |logit|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import _pad_cache_to
+
+    cfg = dataclasses.replace(get_arch(name), dtype="float32")
+    B, S, steps = CHECK["batch"], CHECK["prompt"], CHECK["steps"]
+    gpu = Model(cfg, generator=torch.Generator(device).manual_seed(1), device=device)
+    cpu = Model(cfg, params=_cpu_tree(gpu.params), device="cpu")
+    tok = torch.from_numpy(
+        np.random.default_rng(21).integers(0, cfg.vocab, (B, S)).astype(np.int32))
+    g_last, g_state = gpu.prefill({"tokens": tok.to(device)})
+    c_last, c_state = cpu.prefill({"tokens": tok})
+    g_state = _pad_cache_to(g_state, cfg.family, S + steps)
+    c_state = _pad_cache_to(c_state, cfg.family, S + steps)
+    errs, scales = [], []
+    pairs = [(g_last, c_last)]
+    step = torch.argmax(c_last, dim=-1).to(torch.int32)
+    for t in range(steps):
+        g_log, g_state = gpu.decode_step(g_state, step.to(device), S + t)
+        c_log, c_state = cpu.decode_step(c_state, step, S + t)
+        pairs.append((g_log, c_log))
+        step = torch.argmax(c_log, dim=-1).to(torch.int32)
+    for g, c in pairs:
+        g = g.float().cpu()
+        errs.append(float((g - c).abs().max()))
+        scales.append(float(c.abs().max()))
+        if not bool(torch.isfinite(g).all()) or errs[-1] > CHECK["rel_tol"] * scales[-1]:
+            raise AssertionError(f"serve check {name}: card vs CPU logits differ by {errs[-1]} "
+                                 f"(max |logit| {scales[-1]}, tolerance {CHECK['rel_tol']} of it)")
+    rec = {"model": name, "dtype": "float32", "batch": B, "prompt": S, "decode_steps": steps,
+           "max_abs_err": max(errs), "max_abs_err_by_step": errs, "max_abs_logit": max(scales),
+           "rel_tol": CHECK["rel_tol"]}
+    print("[serve-check] " + json.dumps(rec), flush=True)
+    del gpu, cpu, g_state, c_state
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
     card = _card()
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     phase_build()
     device = torch.device("cuda", 0)
     timing = phase_kernel_vs_plain(device)
     timing_batch = phase_batch_kernel_vs_plain(device)
+    timing_flash = phase_flash_vs_plain(device)
+    timing_ssd = phase_ssd_vs_plain(device)
 
     launches = {}
     for name, run in (
@@ -619,12 +931,22 @@ def main() -> int:
     print(f"[launches] placement_sweep_batch per schedule_many phase: "
           f"{json.dumps(many_launches)}", flush=True)
 
+    serve = {name: phase_serve(name, device) for name in SERVE_MODELS}
+    print(f"[launches] per served generate: "
+          f"{json.dumps({n: r['launches'] for n, r in serve.items()})}", flush=True)
+    for name in SERVE_MODELS:
+        phase_serve_check(name, device)
+
     kernels = []
     for name, replaces, rec, n in (
         ("placement_sweep", "src/repro/kernels/placement_step.py:136", timing,
          sum(launches.values())),
         ("placement_sweep_batch", "src/repro/kernels/placement_step.py:267", timing_batch,
          sum(many_launches.values())),
+        ("flash_attention", "src/repro/kernels/flash_attention.py:121", timing_flash,
+         serve["smollm-135m"]["launches"]["flash_attention"]),
+        ("ssd_scan", "src/repro/kernels/ssd_scan.py:103", timing_ssd,
+         serve["mamba2-130m"]["launches"]["ssd_scan"]),
     ):
         kernels.append({
             "name": name,

@@ -1,4 +1,5 @@
-"""Build this package's task, fleet and instance types from look-alike objects.
+"""Build this package's types from the reference's: scheduler instances by
+duck typing, model parameters and decode states from numpy arrays.
 
 ``task_from`` / ``tasks_from`` / ``fleet_from`` / ``instance_from`` /
 ``instances_from`` read any object carrying the reference field names
@@ -8,16 +9,29 @@ devices; ``DeviceProfile``: t_slr, t_cfg, klass; ``ScheduleInstance``:
 tasks, fleet) by duck typing, so two implementations can be fed the same instance field
 by field.  Floats pass through unchanged, so shares and powers stay
 bit-identical.
+
+``params_from`` / ``state_from`` turn the JAX package's parameter tree and
+decode state, handed over as numpy arrays (``jax.tree.map(np.asarray,
+params)``; a KV cache is a ``(k, v)`` pair, an SSM state a dict), into
+torch tensors with the same names and structure, so the port can run on
+the reference's weights and continue from its prefill.  A bfloat16 array
+(the ``ml_dtypes`` type that jax hands to numpy) keeps its bits.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Any, Iterable
+
+import numpy as np
+import torch
 
 from .core.scheduler import ScheduleInstance
 from .core.task import DeviceProfile, FleetSpec, Task, TaskVariant
 
-__all__ = ["task_from", "tasks_from", "fleet_from", "instance_from", "instances_from"]
+__all__ = [
+    "task_from", "tasks_from", "fleet_from", "instance_from", "instances_from",
+    "params_from", "state_from",
+]
 
 
 def task_from(obj) -> Task:
@@ -67,3 +81,34 @@ def instance_from(obj) -> ScheduleInstance:
 
 def instances_from(objs: Iterable) -> list[ScheduleInstance]:
     return [instance_from(o) for o in objs]
+
+
+def _tensor(arr, device, dtype) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":  # torch cannot read that type: carry the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype)
+
+
+def _tree_from(node: Any, device, dtype):
+    if isinstance(node, dict):
+        return {k: _tree_from(v, device, dtype) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return type(node)(_tree_from(v, device, dtype) for v in node)
+    return _tensor(node, device, dtype)
+
+
+def params_from(tree: dict, device: torch.device | str, dtype: torch.dtype | None = None) -> dict:
+    """A parameter tree of numpy arrays -> the same tree of tensors on
+    ``device`` (types kept unless ``dtype`` is given), name for name."""
+    return _tree_from(tree, device, dtype)
+
+
+def state_from(state: Any, device: torch.device | str) -> Any:
+    """A decode state of numpy arrays (a transformer's ``(k, v)`` cache of
+    ``(L, B, T, K, hd)``, or an SSM's dict of ``conv_x`` / ``conv_B`` /
+    ``conv_C`` / ``ssm``) -> the same structure of tensors on ``device``,
+    types kept."""
+    return _tree_from(state, device, None)

@@ -1,5 +1,12 @@
 """Hand-written CUDA kernels of the port, each beside its plain torch version.
 
 ``ops`` dispatches on the tensors' device (CPU: plain version, CUDA: the
-kernel); ``_build`` compiles ``csrc/*.cu`` with ``nvcc`` on first launch.
+kernel): ``placement_sweep`` / ``placement_sweep_batch`` (the Alg-2
+sweeps), ``flash_attention`` and ``ssd_scan`` (the serving path's
+prefill).  ``ref`` holds the ML kernels' plain oracles; ``_build``
+compiles ``csrc/*.cu`` with ``nvcc`` on first launch.
 """
+
+from . import ref
+
+__all__ = ["ref"]

@@ -20,7 +20,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "load_library"]
+import torch
+
+__all__ = ["MAX_SMEM", "NVCC_FLAGS", "build_dir", "check_cuda", "launch", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -31,6 +33,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -81,3 +85,35 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_build(_CSRC / f"{name}.cu")))
             _LIBS[name] = lib
         return lib
+
+
+def launch(name: str, symbol: str, argtypes: list, args: tuple, device: torch.device) -> None:
+    """Call ``csrc/<name>.cu``'s C launcher ``symbol`` on the current stream
+    of ``device``, passing the stream as its last argument; raise on the
+    ``cudaGetLastError`` code it returns (its ``<name>_error_string`` names
+    it).  Every wrapper of the package launches through here."""
+    lib = load_library(name)
+    fn = getattr(lib, symbol)
+    err_string = getattr(lib, f"{name}_error_string")
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err_string.argtypes = [ctypes.c_int]
+        err_string.restype = ctypes.c_char_p
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {err_string(err).decode()} ({err})")
+
+
+def check_cuda(smem: int, **named: torch.Tensor) -> None:
+    """Raise unless every named tensor is a contiguous CUDA tensor and a
+    block's ``smem`` bytes of shared memory fit the card."""
+    for name, t in named.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if smem > MAX_SMEM:
+        raise ValueError(f"a block needs {smem} bytes of shared memory (> {MAX_SMEM})")

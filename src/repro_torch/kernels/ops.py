@@ -10,14 +10,16 @@ from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .placement_step import (
     placement_sweep_batch_cuda,
     placement_sweep_batch_plain,
     placement_sweep_cuda,
     placement_sweep_plain,
 )
+from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
-__all__ = ["placement_sweep", "placement_sweep_batch"]
+__all__ = ["flash_attention", "ssd_scan", "placement_sweep", "placement_sweep_batch"]
 
 
 def _pick(t: torch.Tensor, plain, kernel, name: str):
@@ -67,3 +69,46 @@ def placement_sweep_batch(
                "placement_sweep_batch")
     return fn(shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff,
               resume_cost=resume_cost, repay_init=repay_init)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_offset: int | torch.Tensor = 0,
+    kv_len: int | torch.Tensor | None = None,
+    causal: bool = True,
+    window: int = 0,
+    kv_chunk: int = 1024,
+    p_dtype: str = "float32",
+) -> torch.Tensor:
+    """GQA attention of q (B, S, H, hd) against k, v (B, T, K, hd).
+
+    The flash kernel covers the full-sequence cases (train, prefill).
+    Decode (S == 1), a runtime ``kv_len`` or a tensor ``q_offset`` go to
+    ``layers.chunked_attention`` (``kv_chunk`` keys at a time, p @ v in
+    ``p_dtype``), where the JAX package runs no kernel either.
+    """
+    from ..models.layers import chunked_attention
+
+    S = q.shape[1]
+    if S == 1 or kv_len is not None or not isinstance(q_offset, int):
+        return chunked_attention(
+            q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal, window=window,
+            kv_chunk=min(kv_chunk, k.shape[1]), p_dtype=p_dtype,
+        )
+    fn = _pick(q, flash_attention_plain, flash_attention_cuda, "flash_attention")
+    q, k, v = (t.contiguous() for t in (q, k, v))  # the kernel reads dense rows
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = False):
+    """Mamba-2 SSD chunked scan; ``chunk`` shrinks to the largest divisor of
+    S not above it.  Returns y, or ``(y, final_state)``."""
+    S = x.shape[1]
+    while S % chunk:
+        chunk -= 1
+    fn = _pick(x, ssd_scan_plain, ssd_scan_cuda, "ssd_scan")
+    x, dt, A, Bm, Cm, D = (t.contiguous() for t in (x, dt, A, Bm, Cm, D))
+    return fn(x, dt, A, Bm, Cm, D, chunk=chunk, return_state=return_state)

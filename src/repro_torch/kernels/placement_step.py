@@ -44,7 +44,6 @@ __all__ = [
 ]
 
 _PLACE_EPS = 1e-9  # == repro_torch.core.placement._EPS
-_MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
 _INT_MAX = 2**31 - 1  # the launchers take B and R as C ints
 
 
@@ -209,42 +208,14 @@ def placement_sweep_batch_plain(
     )[0]
 
 
-def _launch(name: str, fn_argtypes: list, args: tuple, device: torch.device) -> None:
-    """Call ``csrc/<name>.cu``'s launcher on the current stream of
-    ``device``; raise on the error code it returns."""
-    lib = _build.load_library(name)
-    fn = getattr(lib, f"{name}_f64")
-    err_string = getattr(lib, f"{name}_error_string")
-    if fn.argtypes is None:
-        fn.argtypes = fn_argtypes
-        fn.restype = ctypes.c_int
-        err_string.argtypes = [ctypes.c_int]
-        err_string.restype = ctypes.c_char_p
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: {err_string(err).decode()} ({err})")
-
-
-def _check_cuda(smem: int, **named: torch.Tensor) -> None:
-    for name, t in named.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if smem > _MAX_SMEM:
-        raise ValueError(f"tables need {smem} bytes of shared memory (> {_MAX_SMEM})")
-
-
 _P = ctypes.c_void_p
 _SWEEP_ARGTYPES = [
     _P, _P, _P, _P, ctypes.c_double, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
+    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
 ]
 _BATCH_ARGTYPES = [
     _P, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
 ]
 
 
@@ -264,7 +235,7 @@ def placement_sweep_cuda(
     0`` block returns empty outputs and launches nothing).
     """
     B, n_t, n_f = _check(shares, iis, t_slr, t_cfg)
-    _check_cuda(8 * (n_t + 2 * n_f), shares=shares, iis=iis, t_slr=t_slr, t_cfg=t_cfg)
+    _build.check_cuda(8 * (n_t + 2 * n_f), shares=shares, iis=iis, t_slr=t_slr, t_cfg=t_cfg)
     dev = shares.device
     feasible = torch.empty(B, dtype=torch.bool, device=dev)
     placed = torch.empty(B, dtype=torch.int32, device=dev)
@@ -273,7 +244,7 @@ def placement_sweep_cuda(
     outs = (feasible, placed, n_splits, devices_used)
     if B == 0:
         return outs  # a grid of zero blocks is a launch error
-    _launch("placement_sweep", _SWEEP_ARGTYPES, (
+    _build.launch("placement_sweep", "placement_sweep_f64", _SWEEP_ARGTYPES, (
         shares.data_ptr(), iis.data_ptr(), t_slr.data_ptr(), t_cfg.data_ptr(),
         float(resume_cost), int(bool(repay_init)), B, n_t, n_f,
         *(o.data_ptr() for o in outs),
@@ -307,7 +278,7 @@ def placement_sweep_batch_cuda(
     empty ``B * R == 0`` stack returns empty outputs and launches nothing).
     """
     B, R, n_t, n_f = _check_batch(shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff)
-    _check_cuda(
+    _build.check_cuda(
         8 * (n_t + 2 * n_f), shares=shares, iis=iis, t_slr=t_slr, t_cfg=t_cfg,
         n_t_eff=n_t_eff, n_f_eff=n_f_eff,
     )
@@ -321,7 +292,7 @@ def placement_sweep_batch_cuda(
     outs = (feasible, placed, n_splits, devices_used)
     if B == 0 or R == 0:
         return outs  # a grid of zero blocks is a launch error
-    _launch("placement_sweep_batch", _BATCH_ARGTYPES, (
+    _build.launch("placement_sweep_batch", "placement_sweep_batch_f64", _BATCH_ARGTYPES, (
         shares.data_ptr(), iis.data_ptr(), t_slr.data_ptr(), t_cfg.data_ptr(),
         n_t_eff.data_ptr(), n_f_eff.data_ptr(), float(resume_cost),
         int(bool(repay_init)), B, R, n_t, n_f, *(o.data_ptr() for o in outs),

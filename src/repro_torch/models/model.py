@@ -1,0 +1,154 @@
+"""Model facade over the ported families (``dense``, ``ssm``).
+
+``Model`` is an ``nn.Module`` holding the stacked parameter tree under the
+JAX package's names (``embed``, ``blocks.attn.wq``, ...), and exposes the
+serving entry points:
+
+* ``forward``      — full-sequence logits (prefill without cache)
+* ``prefill``      — full sequence -> (last_logits, decode state)
+* ``decode_step``  — one token + state -> (logits, state)
+* ``init_state``   — the zero decode state
+
+The parameters live on ``device``, ``"cuda"`` unless the caller asks for
+another: building a model without ``device=`` on a host with no card
+raises.  The other families (MoE, hybrid, enc-dec, VLM) are not ported yet
+(ROADMAP queue 1, item 8) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from . import ssm, transformer
+from .params import init_params, param_count
+from .transformer import ExecConfig
+
+__all__ = ["Model", "ExecConfig", "resolve_device"]
+
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device on a host without one
+    raises rather than falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} asked for, but no CUDA device is present; pass device='cpu' "
+            "to run the plain torch path on the CPU"
+        )
+    return dev
+
+
+class _Tree(nn.Module):
+    """A nested parameter dict as a module tree: leaves are (frozen)
+    parameters, sub-dicts are submodules, names as in the dict."""
+
+    def __init__(self, tree: dict) -> None:
+        super().__init__()
+        for name, node in tree.items():
+            if isinstance(node, dict):
+                self.add_module(name, _Tree(node))
+            else:
+                self.register_parameter(name, nn.Parameter(node, requires_grad=False))
+
+    def as_dict(self) -> dict:
+        out: dict[str, Any] = dict(self._parameters)
+        out.update({name: mod.as_dict() for name, mod in self._modules.items()})
+        return out
+
+
+class Model(nn.Module):
+    """A ported model.  ``params``: a tree of tensors with the spec tree's
+    names and shapes (``convert.params_from`` builds one from the JAX
+    package's); without it the parameters are drawn by ``init_params`` from
+    ``generator`` (a fresh one seeded 0 on ``device`` if none is given).
+    ``dtype`` overrides the stored type of every parameter (the JAX package
+    stores float32 and casts at use)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        ex: ExecConfig | None = None,
+        *,
+        params: dict | None = None,
+        generator: torch.Generator | None = None,
+        device: torch.device | str = "cuda",
+        dtype: torch.dtype | None = None,
+    ) -> None:
+        super().__init__()
+        if cfg.family not in PORTED_FAMILIES:
+            raise NotImplementedError(
+                f"the {cfg.family} family is not ported yet (ROADMAP queue 1, item 8); "
+                f"ported: {PORTED_FAMILIES}"
+            )
+        self.cfg = cfg
+        self.ex = ex or ExecConfig()
+        self.device = resolve_device(device)
+        if params is None:
+            gen = generator or torch.Generator(self.device).manual_seed(0)
+            params = init_params(self.specs(), gen, self.device, dtype)
+        else:
+            params = _to(params, self.device, dtype)
+        self.tree = _Tree(params)
+
+    # ---- parameters -----------------------------------------------------
+    def specs(self) -> dict:
+        if self.cfg.family == "ssm":
+            return ssm.ssm_specs(self.cfg)
+        return transformer.lm_specs(self.cfg)
+
+    @property
+    def params(self) -> dict:
+        """The parameter tree as nested dicts (the tensors themselves)."""
+        return self.tree.as_dict()
+
+    def n_params(self) -> int:
+        return param_count(self.specs())
+
+    # ---- full forward ---------------------------------------------------
+    @torch.no_grad()
+    def forward(self, batch: dict) -> torch.Tensor:
+        if self.cfg.family == "ssm":
+            logits, _ = ssm.ssm_forward(self.cfg, self.ex, self.params, batch)
+        else:
+            logits, _ = transformer.lm_forward(self.cfg, self.ex, self.params, batch)
+        return logits
+
+    # ---- serving --------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, batch: dict):
+        """Returns (last_token_logits, decode_state)."""
+        if self.cfg.family == "ssm":
+            logits, _, state = ssm.ssm_forward(
+                self.cfg, self.ex, self.params, batch, return_state=True
+            )
+        else:
+            logits, _, state = transformer.lm_forward(
+                self.cfg, self.ex, self.params, batch, return_cache=True
+            )
+        return logits[:, -1], state
+
+    @torch.no_grad()
+    def decode_step(self, state, tokens: torch.Tensor, idx: int):
+        """One token a row at cache position ``idx``; returns (logits,
+        state).  The state is updated in place and returned."""
+        if self.cfg.family == "ssm":
+            return ssm.ssm_decode_step(self.cfg, self.ex, self.params, state, tokens, int(idx))
+        return transformer.lm_decode_step(self.cfg, self.ex, self.params, state, tokens, int(idx))
+
+    def init_state(self, batch_size: int, max_len: int):
+        if self.cfg.family == "ssm":
+            return ssm.init_ssm_state(self.cfg, batch_size, device=self.device)
+        return transformer.init_cache(self.cfg, batch_size, max_len, device=self.device)
+
+
+def _to(tree: dict, device: torch.device, dtype: torch.dtype | None) -> dict:
+    return {
+        k: _to(v, device, dtype) if isinstance(v, dict) else v.to(device=device, dtype=dtype)
+        for k, v in tree.items()
+    }

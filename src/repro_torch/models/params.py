@@ -1,0 +1,111 @@
+"""Parameter specification trees, as the JAX package describes them.
+
+Every model describes its parameters as a nested dict of
+:class:`ParamSpec` (shape, logical axes, initializer, dtype).  From one
+spec tree this module derives the materialised tensors
+(:func:`init_params`) and counts (:func:`param_count`).  The logical axes
+are kept so that the trees match the JAX package's name for name; the
+port shards nothing yet.
+
+Logical axis names: ``layers`` (stacked-layer leading axis), ``embed``,
+``heads``, ``kv``, ``mlp``, ``vocab``, ``expert``, ``state``, ``conv``,
+``None``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+__all__ = ["ParamSpec", "init_params", "map_specs", "param_count"]
+
+Initializer = str  # "normal" | "zeros" | "ones" | "embed" | "lecun" | "recurrent"
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: Initializer = "lecun"
+    dtype: str = "float32"
+    # fan-in override for stacked specs where the leading 'layers' axis
+    # must not count toward the initializer's fan computation
+    fan_in_dims: tuple[int, ...] | None = None
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
+
+
+def map_specs(fn: Callable[[tuple[str, ...], ParamSpec], Any], specs: Any) -> Any:
+    """Map over a spec tree with path, preserving dict structure."""
+
+    def rec(node: Any, path: tuple[str, ...]) -> Any:
+        if isinstance(node, ParamSpec):
+            return fn(path, node)
+        if isinstance(node, dict):
+            return {k: rec(v, path + (k,)) for k, v in node.items()}
+        raise TypeError(f"unexpected node at {path}: {type(node)}")
+
+    return rec(specs, ())
+
+
+def _fan_in(spec: ParamSpec) -> int:
+    dims = spec.fan_in_dims
+    if dims is None:
+        # default: all but the last dim (weights are [..., in, out] or [in, out])
+        if len(spec.shape) <= 1:
+            return max(1, math.prod(spec.shape))
+        dims = tuple(range(len(spec.shape) - 1))
+        # skip a leading stacked-layer axis
+        if spec.axes and spec.axes[0] == "layers" and len(spec.shape) > 2:
+            dims = tuple(d for d in dims if d != 0)
+    return max(1, math.prod(spec.shape[d] for d in dims))
+
+
+def _init_one(spec: ParamSpec, gen: torch.Generator, device, dtype) -> torch.Tensor:
+    kw = dict(dtype=torch.float32, device=device)
+    if spec.init == "zeros":
+        out = torch.zeros(spec.shape, **kw)
+    elif spec.init == "ones":
+        out = torch.ones(spec.shape, **kw)
+    elif spec.init in ("embed", "normal"):
+        # GPT-2-style 0.02 std: keeps tied-embedding logits O(1) at init
+        out = 0.02 * torch.randn(spec.shape, generator=gen, **kw)
+    elif spec.init == "lecun":
+        out = torch.randn(spec.shape, generator=gen, **kw) / math.sqrt(_fan_in(spec))
+    elif spec.init == "recurrent":
+        # RG-LRU / SSM log-recurrence parameters: uniform in a stable range
+        u = 0.9 + 0.099 * torch.rand(spec.shape, generator=gen, **kw)
+        out = torch.log(u / (1.0 - u))  # logit of decay
+    else:
+        raise ValueError(f"unknown initializer {spec.init}")
+    return out.to(dtype or getattr(torch, spec.dtype))
+
+
+def init_params(
+    specs: Any,
+    generator: torch.Generator,
+    device: torch.device | str,
+    dtype: torch.dtype | None = None,
+) -> Any:
+    """Materialise a parameter tree from a spec tree, drawing from
+    ``generator`` (which must live on ``device``) leaf by leaf in the tree's
+    order.  The initializer laws are the JAX package's; its draws come from
+    jax's PRNG, so the numbers differ.  ``dtype`` overrides every leaf's
+    stored type (the draws are made at float32 first)."""
+    return map_specs(lambda _p, s: _init_one(s, generator, device, dtype), specs)
+
+
+def param_count(specs: Any) -> int:
+    total = 0
+
+    def add(_p: tuple[str, ...], s: ParamSpec) -> None:
+        nonlocal total
+        total += math.prod(s.shape)
+
+    map_specs(add, specs)
+    return total

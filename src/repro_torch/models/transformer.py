@@ -1,0 +1,219 @@
+"""Decoder-only transformer, dense GQA family.
+
+Layer-stacked parameters (a leading ``(L, ...)`` axis, the JAX package's
+tree), run by a Python loop over layers, and a KV-cache decode path.
+Attention goes through ``kernels.ops.flash_attention``: the tensors'
+device picks the flash kernel (CUDA) or its plain version (CPU) for full
+sequences, and decode runs ``layers.chunked_attention``.
+
+The MoE and VLM members of the family are not ported yet (ROADMAP queue 1,
+item 8): their specs raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from .layers import apply_rope, rms_norm, swiglu
+from .params import ParamSpec
+
+__all__ = ["ExecConfig", "block_specs", "lm_specs", "lm_forward", "lm_decode_step", "init_cache"]
+
+_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 8: MoE, M-RoPE/VLM)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecConfig:
+    """Execution knobs orthogonal to the architecture.
+
+    ``kv_chunk`` bounds the keys a step of ``chunked_attention`` scores
+    (decode scores the whole cache at once, as the JAX package does);
+    ``attn_p_dtype`` is the type p and v are rounded to for p @ v there.
+    """
+
+    kv_chunk: int = 1024
+    attn_p_dtype: str = "float32"
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+
+def attn_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
+    D, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    s: dict[str, ParamSpec] = {
+        "wq": ParamSpec((L, D, H, hd), ("layers", "embed", "heads", None)),
+        "wk": ParamSpec((L, D, K, hd), ("layers", "embed", "kv", None)),
+        "wv": ParamSpec((L, D, K, hd), ("layers", "embed", "kv", None)),
+        "wo": ParamSpec((L, H, hd, D), ("layers", "heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((L, H, hd), ("layers", "heads", None), init="zeros")
+        s["bk"] = ParamSpec((L, K, hd), ("layers", "kv", None), init="zeros")
+        s["bv"] = ParamSpec((L, K, hd), ("layers", "kv", None), init="zeros")
+    return s
+
+
+def mlp_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
+    D, F = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": ParamSpec((L, D, F), ("layers", "embed", "mlp")),
+        "w_up": ParamSpec((L, D, F), ("layers", "embed", "mlp")),
+        "w_down": ParamSpec((L, F, D), ("layers", "mlp", "embed")),
+    }
+
+
+def block_specs(cfg: ModelConfig, L: int) -> dict[str, Any]:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family} family {_NOT_PORTED}")
+    return {
+        "ln1": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="zeros"),
+        "ln2": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="zeros"),
+        "attn": attn_specs(cfg, L),
+        "mlp": mlp_specs(cfg, L),
+    }
+
+
+def lm_specs(cfg: ModelConfig) -> dict[str, Any]:
+    V, D = cfg.vocab, cfg.d_model
+    s: dict[str, Any] = {
+        "embed": ParamSpec((V, D), ("vocab", "embed"), init="embed"),
+        "final_ln": ParamSpec((D,), ("embed",), init="zeros"),
+        "blocks": block_specs(cfg, cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
+    return s
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i``'s slice of a stacked ``(L, ...)`` parameter tree (views)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cache_idx):
+    """Shared attention path.  Returns (attn_out, (k, v)).
+
+    With a cache (one layer's ``(B, T, K, hd)`` pair), the step's k and v
+    are written into it in place at ``cache_idx`` and it is returned.
+    """
+    dt = hn.dtype
+    q = torch.einsum("bsd,dhk->bshk", hn, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", hn, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", hn, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.rope == "rope":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+
+    if cache is None:
+        out = ops.flash_attention(q, k, v, q_offset=0, causal=True, window=0)
+        new_cache = (k, v)  # prefill fills the cache
+    else:
+        ck, cv = cache
+        S = q.shape[1]
+        ck[:, cache_idx : cache_idx + S] = k.to(ck.dtype)
+        cv[:, cache_idx : cache_idx + S] = v.to(cv.dtype)
+        T = ck.shape[1]
+        out = ops.flash_attention(
+            q, ck.to(dt), cv.to(dt), q_offset=cache_idx, kv_len=cache_idx + S,
+            causal=True, window=0, kv_chunk=T if S == 1 else min(ex.kv_chunk, T),
+            p_dtype=ex.attn_p_dtype,
+        )
+        new_cache = (ck, cv)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), new_cache
+
+
+def _block_apply(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, cache_idx):
+    hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+    attn_out, new_cache = _attention(cfg, ex, p["attn"], hn, pos, cache=cache, cache_idx=cache_idx)
+    h = h + attn_out
+    hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
+    m = p["mlp"]
+    y = swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
+    return h + y, new_cache
+
+
+def _logits(cfg: ModelConfig, params: dict, h) -> torch.Tensor:
+    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.einsum("bsd,dv->bsv", h, head.to(h.dtype))
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+
+
+def lm_forward(
+    cfg: ModelConfig,
+    ex: ExecConfig,
+    params: dict,
+    batch: dict,
+    *,
+    return_cache: bool = False,
+):
+    """Full-sequence forward (prefill).
+
+    Returns (logits, aux_loss) or (logits, aux_loss, cache); the cache is
+    the stacked ``(L, B, S, K, hd)`` K/V pair for decode continuation, and
+    aux_loss is 0 (no MoE).
+    """
+    h = _embed(cfg, params, batch["tokens"])
+    B, S = h.shape[0], h.shape[1]
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(S, device=h.device)[None, :].expand(B, S)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        h, (k, v) = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
+                                 cache=None, cache_idx=None)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+    logits = _logits(cfg, params, h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if return_cache:
+        return logits, aux, (torch.stack(ks), torch.stack(vs))
+    return logits, aux
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None, device=None):
+    """Zero KV cache, stacked over layers: (L, B, T, K, hd) x2."""
+    dt = dtype or getattr(torch, cfg.dtype)
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return (torch.zeros(shape, dtype=dt, device=device), torch.zeros(shape, dtype=dt, device=device))
+
+
+def lm_decode_step(
+    cfg: ModelConfig,
+    ex: ExecConfig,
+    params: dict,
+    cache,
+    tokens: torch.Tensor,  # (B,) next-token ids
+    idx: int,  # current cache fill
+):
+    """One decode step: write the token's K/V at ``idx`` of every layer's
+    cache, in place, and return (logits, cache)."""
+    B = tokens.shape[0]
+    h = _embed(cfg, params, tokens[:, None])  # (B,1,D)
+    pos = torch.full((B, 1), idx, dtype=torch.long, device=h.device)
+    for i in range(cfg.n_layers):
+        h, _ = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
+                            cache=(cache[0][i], cache[1][i]), cache_idx=idx)
+    logits = _logits(cfg, params, h)[:, 0]
+    return logits, cache

@@ -6,8 +6,11 @@ imports no JAX, so it also runs on a machine that has only torch:
 
     PYTHONPATH=src python -m pytest -q -m needs_cuda tests/test_torch_cuda_kernels.py
 
-The outputs are compared exactly: kernel and plain version run the same
-float64 operations in the same order.
+The placement sweeps' outputs are compared exactly: kernel and plain
+version run the same float64 operations in the same order.  The attention
+and SSD kernels sum in another order than their plain versions, so they
+are held to the reference kernel tests' tolerances: 2e-5 at float32, 2e-2
+at bfloat16.
 """
 
 import pytest
@@ -22,12 +25,17 @@ from repro_torch.core.placement_backends import (  # noqa: E402
     survivor_tables,
 )
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.placement_step import (  # noqa: E402
     placement_sweep_batch_cuda,
     placement_sweep_batch_plain,
     placement_sweep_cuda,
     placement_sweep_plain,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain  # noqa: E402
 
 
 @pytest.fixture
@@ -209,3 +217,155 @@ def test_cuda_engine_schedule_many_runs_on_kernel_2_only(cuda_device, kw):
         assert (g.feasible, g.chosen_rank, g.n_placement_rejects, g.combo) == (
             w.feasible, w.chosen_rank, w.n_placement_rejects, w.combo
         )
+
+
+# ---------------------------------------------------------------------------
+# kernels 3 and 4: flash attention and the SSD scan
+# ---------------------------------------------------------------------------
+
+# The reference kernel tests' cases (tests/test_kernels.py).
+ATTN_CASES = [
+    # B, S, T, H, K, hd, causal, window
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 256, 256, 8, 8, 64, True, 0),
+    (2, 128, 128, 4, 1, 32, False, 0),
+    (1, 256, 256, 4, 2, 64, True, 64),
+    (2, 96, 200, 4, 4, 128, False, 0),  # uneven, cross
+    (1, 64, 64, 2, 2, 256, True, 0),  # big head dim
+]
+SSD_CASES = [
+    # B, S, nh, hp, ng, ds, chunk
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 256, 8, 64, 2, 64, 64),
+    (2, 64, 4, 32, 4, 16, 16),
+    (1, 128, 2, 8, 1, 8, 128),  # single chunk
+]
+ML_DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _qkv(case, dtype, device, seed=0):
+    B, S, T, H, K, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(s), dtype=torch.float32).to(device, dtype)
+            for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd))]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+@pytest.mark.parametrize("name", ML_DTYPES)
+def test_flash_attention_kernel_matches_plain(cuda_device, case, name):
+    dtype, tol = ML_DTYPES[name]
+    causal, window = case[6], case[7]
+    q, k, v = _qkv(case, dtype, cuda_device)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)  # CUDA tensors: the kernel
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, want, tol)
+
+
+@pytest.mark.needs_cuda
+def test_flash_attention_kernel_q_offset_and_decode_route(cuda_device):
+    """A prefill continuation (q_offset > 0, S < T) runs the kernel; decode
+    (S == 1 with a kv_len) takes chunked_attention and launches nothing."""
+    q, k, v = _qkv((2, 40, 100, 6, 2, 64), torch.float32, cuda_device, seed=3)
+    _close(flash_attention_cuda(q, k, v, q_offset=60),
+           flash_attention_plain(q, k, v, q_offset=60), 2e-5)
+    _close(flash_attention_cuda(q, k, v, q_offset=60, window=17),
+           flash_attention_plain(q, k, v, q_offset=60, window=17), 2e-5)
+    before = flash_attention_cuda.launches
+    ops.flash_attention(q[:, :1], k, v, q_offset=70, kv_len=71)
+    assert flash_attention_cuda.launches == before
+
+
+@pytest.mark.needs_cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = _qkv((1, 16, 16, 2, 1, 64), torch.float32, cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    q48, k48, v48 = _qkv((1, 16, 16, 2, 1, 48), torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention_cuda(q48, k48, v48)
+
+
+def _ssd(case, dtype, device, seed=0):
+    B, S, nh, hp, ng, ds = case[:6]
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.tensor(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    x = f(rng.standard_normal((B, S, nh, hp))).to(dtype)
+    dt = f(np.logaddexp(rng.standard_normal((B, S, nh)), 0.0))
+    A = f(-np.exp(rng.standard_normal(nh) * 0.3))
+    Bm = f(rng.standard_normal((B, S, ng, ds)) * 0.3).to(dtype)
+    Cm = f(rng.standard_normal((B, S, ng, ds)) * 0.3).to(dtype)
+    D = f(rng.standard_normal(nh))
+    return x, dt, A, Bm, Cm, D
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+@pytest.mark.parametrize("name", ML_DTYPES)
+def test_ssd_scan_kernel_matches_plain(cuda_device, case, name):
+    dtype, tol = ML_DTYPES[name]
+    args = _ssd(case, dtype, cuda_device)
+    before = ssd_scan_cuda.launches
+    got_y, got_st = ops.ssd_scan(*args, chunk=case[6], return_state=True)  # the kernel
+    want_y, want_st = ssd_scan_plain(*args, chunk=case[6], return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == before + 1
+    assert got_y.dtype == dtype and got_st.dtype == torch.float32
+    _close(got_y, want_y, tol)
+    _close(got_st, want_st, tol)
+
+
+@pytest.mark.needs_cuda
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda_device):
+    x, dt, A, Bm, Cm, D = _ssd((1, 32, 2, 8, 1, 8), torch.float32, cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_scan_cuda(x.half(), dt, A, Bm.half(), Cm.half(), D, chunk=16)
+    with pytest.raises(TypeError, match="A and D must be float32"):
+        ssd_scan_cuda(x, dt, A.double(), Bm, Cm, D, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm, D, chunk=16)
+    x2, dt2, A2, B2, C2, D2 = _ssd((1, 32, 2, 256, 1, 8), torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="hp = 256"):
+        ssd_scan_cuda(x2, dt2, A2, B2, C2, D2, chunk=16)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m"])
+def test_reduced_models_on_the_card_match_the_cpu(cuda_device, name):
+    """Reduced models at float32: prefill on the card (through kernel 3 or
+    4, once a layer) and a decode step equal the CPU's plain path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+
+    cfg = get_arch(name).reduced()
+    gpu = Model(cfg, generator=torch.Generator(cuda_device).manual_seed(1), device=cuda_device)
+    cpu = Model(cfg, params=_cpu_tree(gpu.params), device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 40)))
+    kernel = flash_attention_cuda if cfg.family == "dense" else ssd_scan_cuda
+    before = kernel.launches
+    g_last, g_state = gpu.prefill({"tokens": tok.to(cuda_device)})
+    assert kernel.launches == before + cfg.n_layers
+    c_last, c_state = cpu.prefill({"tokens": tok})
+    _close(g_last.cpu(), c_last, 1e-4)
+    if cfg.family == "dense":
+        grow = lambda st: tuple(torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 1)) for a in st)  # noqa: E731
+        g_state, c_state = grow(g_state), grow(c_state)
+    g_log, _ = gpu.decode_step(g_state, tok[:, 0].to(cuda_device), 40)
+    c_log, _ = cpu.decode_step(c_state, tok[:, 0], 40)
+    _close(g_log.cpu(), c_log, 1e-4)
+
+
+def _cpu_tree(tree):
+    return {k: _cpu_tree(v) if isinstance(v, dict) else v.detach().cpu() for k, v in tree.items()}
