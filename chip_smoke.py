@@ -29,20 +29,28 @@ Phases (each raises on failure, so any failure exits non-zero):
    fleets and an infeasible member under ``resilience=1`` and under the
    preemptive resume cost, checked against the plain engine;
 8. the flash-attention kernel against its plain version (the reference
-   kernel tests' six cases at float32 and bfloat16, and smollm-135m's
-   prefill shape), timed beside the plain version and
-   ``scaled_dot_product_attention``;
+   kernel tests' six cases at float32 and bfloat16, smollm-135m's prefill
+   shape, and recurrentgemma-2b's local attention, hd 256 with 10 query
+   heads on one kv head, at S = T = 4096 where its 2048 window binds),
+   timed beside the plain version and ``scaled_dot_product_attention`` at
+   smollm-135m's and recurrentgemma-2b's prefill shapes;
 9. the SSD-scan kernel against its plain version (the reference kernel
    tests' four cases, final state included, and mamba2-130m's prefill
    shape), timed beside the plain version;
+9b. the RG-LRU-scan kernel against its plain version (the reference kernel
+   tests' four cases at float32 and bfloat16, final state included, and
+   recurrentgemma-2b's prefill shape), timed beside the plain version;
 10. ``ServeEngine.generate`` at the full published widths of smollm-135m
-    (30 layers) and mamba2-130m (24 layers) in bfloat16 with seeded random
-    weights: 8 prompts of 1024 tokens, 32 greedy tokens each; one kernel
-    launch a layer in the prefill (30 flash-attention, 24 SSD-scan);
-    prefill ms, decode ms a token, tokens/s and the device split;
-11. both models at full width in float32 on the card and on the CPU (the
-    plain path) with the same weights: 2 prompts of 128 tokens and 4 decode
-    steps fed the same tokens, logits compared.
+    (30 layers), mamba2-130m (24 layers) and recurrentgemma-2b (26 layers)
+    in bfloat16 with seeded random weights: 8 prompts of 1024 tokens, 32
+    greedy tokens each; one kernel launch a layer in the prefill, by the
+    layer's kind (30 flash-attention; 24 SSD-scan; 18 RG-LRU-scan and 8
+    flash-attention) and no other launch; prefill ms, decode ms a token,
+    tokens/s and the device split;
+11. the three models at full width and depth in float32 on the card and on
+    the CPU (the plain path) with the same weights: 2 prompts of 128 tokens
+    and 4 decode steps fed the same tokens, logits compared (the CPU holds
+    recurrentgemma-2b's 13.4 GB of float32 weights once).
 
 Float32 matrix products run in full float32 on the card
 (``torch.backends.cuda.matmul.allow_tf32`` is set False, as is cuDNN's
@@ -51,8 +59,8 @@ TF32 switch, though nothing here calls cuDNN).
 The launch counts are zeroed just before each main-path run and read just
 after it (for phase 6, around the many-walk alone: it must launch the
 fleet-parallel kernel and never the single-instance one; for phase 10,
-around one ``generate``); the comparisons of phases 2, 8 and 9 are outside
-those windows.  The last three lines are the
+around one ``generate``); the comparisons of phases 2, 8, 9 and 9b are
+outside those windows.  The last three lines are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
 result when no CUDA device is present or when run outside a checkout of
@@ -98,8 +106,15 @@ EXAMPLE1 = dict(n_tss=1024, n_tfs=620, rejects=146, rank=4, power=31.5)
 DEEP_RANK = 425399
 
 # The ML kernels' bound: the H100 SXM's dense bfloat16 tensor-core peak (NVIDIA
-# data sheet), the rate the attention and SSD products could run at.
+# data sheet), the rate the attention and SSD products could run at; and its
+# float32 rate outside the tensor cores, where the RG-LRU scan's element-wise
+# recurrence runs.
 BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12
+# float32 operations an RG-LRU step, counted from the kernel: two sigmoids
+# (negate, exp, add, divide: 4 each), a = exp(-c lam sr) (multiply, exp),
+# a * a, 1 - that, max, sqrt, sigmoid(i) * x, the gated product, a * h + g.
+OPS_PER_RGLRU_STEP = 18
 ML_REPS = 10
 # The reference kernel tests' cases (tests/test_kernels.py), with their
 # tolerances against the plain version: 2e-5 at float32, 2e-2 at bfloat16.
@@ -112,14 +127,21 @@ SSD_CASES = (  # B, S, nh, hp, ng, ds, chunk
     (2, 128, 4, 16, 1, 32, 32), (1, 256, 8, 64, 2, 64, 64),
     (2, 64, 4, 32, 4, 16, 16), (1, 128, 2, 8, 1, 8, 128),
 )
+RGLRU_CASES = ((2, 128, 64), (1, 100, 200), (2, 64, 256), (1, 32, 16))  # B, S, W
 ML_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # The serving path's kernel shapes: 8 prompts of 1024 tokens through
 # smollm-135m (9 query heads, 3 kv heads of 64) and mamba2-130m (24 heads of
 # 64, one B/C group of state 128, chunks of 256).
 SMOLLM_ATTN = (8, 1024, 1024, 9, 3, 64, True, 0)
 MAMBA_SSD = (8, 1024, 24, 64, 1, 128, 256)
+# recurrentgemma-2b: local attention (10 query heads on one kv head of 256,
+# window 2048) at its prefill shape, where S < window, and at S = T = 4096,
+# where the window binds; its RG-LRU layers at lru_width 2560.
+RGEMMA_ATTN = (8, 1024, 1024, 10, 1, 256, True, 2048)
+RGEMMA_ATTN_WINDOW = (2, 4096, 4096, 10, 1, 256, True, 2048)
+RGEMMA_RGLRU = (8, 1024, 2560)
 SERVE = dict(batch=8, prompt=1024, new=32)
-SERVE_MODELS = {"smollm-135m": "flash_attention", "mamba2-130m": "ssd_scan"}
+SERVE_MODELS = ("smollm-135m", "mamba2-130m", "recurrentgemma-2b")
 CHECK = dict(batch=2, prompt=128, steps=4, rel_tol=1e-3)
 
 
@@ -491,9 +513,9 @@ def phase_deep(engine: str) -> dict:
     return rec
 
 
-def _device_split(run, kernel: str = "placement_sweep_kernel") -> dict:
+def _device_split(run, kernels: tuple[str, ...] = ("placement_sweep_kernel",)) -> dict:
     """Device time of one traced ``run()`` by kind, from torch.profiler:
-    the sweep kernel named ``kernel``, host-to-device and device-to-host
+    each kernel named in ``kernels``, host-to-device and device-to-host
     copies, the rest."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -501,14 +523,15 @@ def _device_split(run, kernel: str = "placement_sweep_kernel") -> dict:
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
-    split = {kernel: 0.0, "memcpy_htod": 0.0, "memcpy_dtoh": 0.0}
+    split = {**dict.fromkeys(kernels, 0.0), "memcpy_htod": 0.0, "memcpy_dtoh": 0.0}
     other: dict[str, float] = {}
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if us <= 0.0:
             continue
-        if kernel in e.key:
-            split[kernel] += us
+        named = [k for k in kernels if k in e.key]
+        if named:
+            split[named[0]] += us
         elif "HtoD" in e.key:
             split["memcpy_htod"] += us
         elif "DtoH" in e.key:
@@ -543,11 +566,13 @@ def _counted(run):
     from repro_torch.kernels.placement_step import placement_sweep_batch_cuda, placement_sweep_cuda
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     kernels = {"placement_sweep": placement_sweep_cuda,
                "placement_sweep_batch": placement_sweep_batch_cuda,
-               "flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda}
+               "flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
+               "rglru_scan": rglru_scan_cuda}
     for fn in kernels.values():
         fn.launches = 0
     out = run()
@@ -603,7 +628,7 @@ def phase_many(engine: str, block_size: int | None) -> dict:
         "walk_stats": {k: v for k, v in ws.as_dict().items() if k != "block_sizes"},
         "launches_two_runs": launches,
         "device_us": _device_split(lambda: sched.schedule_many(insts),
-                                   kernel="placement_sweep_batch_kernel"),
+                                   kernels=("placement_sweep_batch_kernel",)),
     }
     print("[many] " + json.dumps(rec), flush=True)
     return rec
@@ -642,8 +667,8 @@ def phase_options_many(engine: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _ml_bound(n_ops: float, n_bytes: int) -> dict:
-    ops_ms = n_ops / BF16_OPS_PER_S * 1e3
+def _ml_bound(n_ops: float, n_bytes: int, ops_per_s: float = BF16_OPS_PER_S) -> dict:
+    ops_ms = n_ops / ops_per_s * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -670,48 +695,68 @@ def _attn_inputs(case, dtype, device, seed):
             for sh in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd))]
 
 
-def phase_flash_vs_plain(device) -> dict:
-    """flash_attention: kernel vs plain version on the card at the reference
-    cases and smollm-135m's prefill shape; timed there beside the plain
-    version and scaled_dot_product_attention (the yardstick; the port never
-    calls it)."""
+def _time_attention(case, device, seed: int) -> dict:
+    """flash_attention at a causal prefill shape (S == T) in bf16: checked
+    against the plain version, then timed beside it and beside
+    scaled_dot_product_attention (the yardstick; the port never calls it),
+    whose ``is_causal`` is exact only where the window does not bind."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 
+    B, S, T, H, K, hd, _, window = case
+    if S != T or 0 < window < S:
+        raise ValueError(f"{case}: SDPA's is_causal is not this attention")
+    q, k, v = _attn_inputs(case, torch.bfloat16, device, seed)
+    kw = dict(causal=True, window=window)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    err = _err(got, want, ML_TOL["bfloat16"], f"flash_attention {case}")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))  # SDPA's (B, heads, S, hd) views
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
+    ms = _events_ms(lambda: flash_attention_cuda(q, k, v, **kw), ML_REPS)
+    plain_ms = _events_ms(lambda: flash_attention_plain(q, k, v, **kw), ML_REPS)
+    library_ms = _events_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), ML_REPS)
+    visible = S * (S + 1) // 2  # causal, S == T, no binding window: query i sees keys 0..i
+    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * T * K * hd)  # q, o, k, v in bf16
+    return {"shape": dict(zip(("B", "S", "T", "H", "K", "hd", "causal", "window"), case,
+                              strict=True)),
+            "dtype": "bfloat16", "max_abs_err": err, "sdpa_vs_plain_max_abs_err": lib_err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **_ml_bound(4 * B * H * hd * visible, n_bytes)}
+
+
+def phase_flash_vs_plain(device) -> dict:
+    """flash_attention: kernel vs plain version on the card at the reference
+    cases and recurrentgemma-2b's binding window; timed at smollm-135m's
+    prefill shape (the returned record) and recurrentgemma-2b's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
     errs = {}
-    for i, case in enumerate(ATTN_CASES):
-        for name, tol in ML_TOL.items():
+    for i, case in enumerate((*ATTN_CASES, RGEMMA_ATTN_WINDOW)):
+        names = ("bfloat16",) if case == RGEMMA_ATTN_WINDOW else ML_TOL
+        for name in names:
             q, k, v = _attn_inputs(case, getattr(torch, name), device, i)
             kw = dict(causal=case[6], window=case[7])
             got, want = flash_attention_cuda(q, k, v, **kw), flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
-            errs[f"{case} {name}"] = _err(got, want, tol, f"flash_attention {case} {name}")
-    print(f"[kernel] flash_attention: {len(errs)} reference cases within tolerance, max abs err "
+            errs[f"{case} {name}"] = _err(got, want, ML_TOL[name], f"flash_attention {case} {name}")
+    print(f"[kernel] flash_attention: {len(errs)} cases within tolerance (the reference's "
+          f"and recurrentgemma-2b's window {RGEMMA_ATTN_WINDOW}), max abs err "
           f"f32 {max(e for c, e in errs.items() if c.endswith('float32')):.3g}, "
           f"bf16 {max(e for c, e in errs.items() if c.endswith('bfloat16')):.3g}", flush=True)
 
-    B, S, T, H, K, hd = SMOLLM_ATTN[:6]
-    q, k, v = _attn_inputs(SMOLLM_ATTN, torch.bfloat16, device, 99)
-    got = flash_attention_cuda(q, k, v, causal=True)
-    want = flash_attention_plain(q, k, v, causal=True)
-    err = _err(got, want, ML_TOL["bfloat16"], "flash_attention smollm-135m prefill shape")
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))  # SDPA's (B, heads, S, hd) views
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
-    ms = _events_ms(lambda: flash_attention_cuda(q, k, v, causal=True), ML_REPS)
-    plain_ms = _events_ms(lambda: flash_attention_plain(q, k, v, causal=True), ML_REPS)
-    library_ms = _events_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), ML_REPS)
-    visible = S * (S + 1) // 2  # causal, S == T: query i sees keys 0..i
-    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * T * K * hd)  # q, o, k, v in bf16
-    rec = {"shape": dict(zip(("B", "S", "T", "H", "K", "hd"), SMOLLM_ATTN[:6], strict=True)),
-           "dtype": "bfloat16", "max_abs_err": err, "sdpa_vs_plain_max_abs_err": lib_err,
-           "case_errs": errs, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           **_ml_bound(4 * B * H * hd * visible, n_bytes)}
+    rec = {**_time_attention(SMOLLM_ATTN, device, 99), "case_errs": errs}
     print("[kernel] " + json.dumps({"flash_attention_timing": {
         k: v for k, v in rec.items() if k != "case_errs"}}), flush=True)
+    rec["recurrentgemma"] = _time_attention(RGEMMA_ATTN, device, 96)
+    print("[kernel] " + json.dumps({"flash_attention_timing_recurrentgemma":
+                                    rec["recurrentgemma"]}), flush=True)
     return rec
 
 
@@ -777,13 +822,83 @@ def phase_ssd_vs_plain(device) -> dict:
     return rec
 
 
+def _rglru_inputs(case, dtype, device, seed):
+    import torch
+
+    B, S, W = case
+    rng = np.random.default_rng(seed)
+
+    def on(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a, np.float32)).to(device, dt)
+
+    return (*(on(rng.standard_normal((B, S, W)), dtype) for _ in range(3)),
+            on(rng.standard_normal(W)))
+
+
+def phase_rglru_vs_plain(device) -> dict:
+    """rglru_scan: kernel vs plain version (y and the final state) on the
+    card at the reference cases and recurrentgemma-2b's prefill shape; timed
+    there.  The kernel returns the float32 state, the plain version the
+    state rounded to x's type (the reference oracle's convention): at
+    bfloat16 the two differ by that rounding, inside 2e-2.  No single
+    PyTorch call computes the scan, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_plain
+
+    errs = {}
+    for i, case in enumerate(RGLRU_CASES):
+        for name, tol in ML_TOL.items():
+            args = _rglru_inputs(case, getattr(torch, name), device, i)
+            got = rglru_scan_cuda(*args, return_state=True)
+            want = rglru_scan_plain(*args, return_state=True)
+            torch.cuda.synchronize()
+            errs[f"{case} {name}"] = max(
+                _err(got[0], want[0], tol, f"rglru_scan {case} {name}: y"),
+                _err(got[1], want[1], tol, f"rglru_scan {case} {name}: state"))
+    print(f"[kernel] rglru_scan: {len(errs)} reference cases within tolerance (y and state), "
+          f"max abs err f32 {max(e for c, e in errs.items() if c.endswith('float32')):.3g}, "
+          f"bf16 {max(e for c, e in errs.items() if c.endswith('bfloat16')):.3g}", flush=True)
+
+    B, S, W = RGEMMA_RGLRU
+    errs_prefill = {}
+    for name, tol in ML_TOL.items():
+        args = _rglru_inputs(RGEMMA_RGLRU, getattr(torch, name), device, 95)
+        got = rglru_scan_cuda(*args, return_state=True)
+        want = rglru_scan_plain(*args, return_state=True)
+        errs_prefill[name] = max(
+            _err(got[0], want[0], tol, f"rglru_scan recurrentgemma-2b shape {name}: y"),
+            _err(got[1], want[1], tol, f"rglru_scan recurrentgemma-2b shape {name}: state"))
+    args = _rglru_inputs(RGEMMA_RGLRU, torch.bfloat16, device, 95)  # the timed inputs
+    ms = _events_ms(lambda: rglru_scan_cuda(*args, return_state=True), ML_REPS)
+    plain_ms = _events_ms(lambda: rglru_scan_plain(*args, return_state=True), ML_REPS)
+    # x, r, i read and y written once in bf16; log_lambda f32; the f32 state
+    n_bytes = 2 * 4 * B * S * W + 4 * W + 4 * B * W
+    rec = {"shape": dict(zip(("B", "S", "W"), RGEMMA_RGLRU, strict=True)), "dtype": "bfloat16",
+           "max_abs_err": errs_prefill["bfloat16"], "max_abs_err_float32": errs_prefill["float32"],
+           "case_errs": errs, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           **_ml_bound(OPS_PER_RGLRU_STEP * B * S * W, n_bytes, FP32_OPS_PER_S)}
+    print("[kernel] " + json.dumps({"rglru_scan_timing": {
+        k: v for k, v in rec.items() if k != "case_errs"}}), flush=True)
+    return rec
+
+
 def _cpu_tree(tree: dict) -> dict:
     return {k: _cpu_tree(v) if isinstance(v, dict) else v.detach().cpu() for k, v in tree.items()}
 
 
+def _expected_launches(cfg) -> dict:
+    """A prefill's kernel launches: one a layer, by the layer's kind."""
+    kinds = cfg.layer_kinds()
+    want = {"flash_attention": kinds.count("attn"), "ssd_scan": kinds.count("ssm"),
+            "rglru_scan": kinds.count("rec")}
+    return {k: n for k, n in want.items() if n}
+
+
 def phase_serve(name: str, device) -> dict:
-    """ServeEngine.generate at the model's full published width in bfloat16,
-    weights from init_params with a seeded generator on the card."""
+    """ServeEngine.generate at the model's full published width and depth in
+    bfloat16, weights from init_params with a seeded generator on the
+    card."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -792,7 +907,7 @@ def phase_serve(name: str, device) -> dict:
     from repro_torch.serve.engine import _pad_cache_to
 
     cfg = get_arch(name)
-    kernel = SERVE_MODELS[name]
+    want = _expected_launches(cfg)
     B, S, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
     model = Model(cfg, generator=torch.Generator(device).manual_seed(0), device=device,
                   dtype=getattr(torch, cfg.dtype))
@@ -809,9 +924,9 @@ def phase_serve(name: str, device) -> dict:
         return out, time.perf_counter() - t0
 
     (out, gen_s), counts = _counted(run)
-    if counts[kernel] != cfg.n_layers or any(n for k, n in counts.items() if k != kernel):
-        raise AssertionError(f"serve {name}: launches {counts}; want {kernel} == "
-                             f"{cfg.n_layers} (one a layer, in the prefill) and no other")
+    if {k: n for k, n in counts.items() if n} != want:
+        raise AssertionError(f"serve {name}: launches {counts}; want {want} (one a layer of "
+                             f"its kind, in the prefill) and no other")
     if tuple(out.shape) != (B, new) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
         raise AssertionError(f"serve {name}: tokens {tuple(out.shape)} out of range")
 
@@ -841,7 +956,7 @@ def phase_serve(name: str, device) -> dict:
         "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
         "launches": counts, "first_row": out[0, :8].tolist(),
         "device_us": _device_split(lambda: (engine.generate(batch, 8), torch.cuda.synchronize()),
-                                   kernel=f"{kernel}_kernel"),
+                                   kernels=tuple(f"{k}_kernel" for k in want)),
     }
     print("[serve] " + json.dumps(rec), flush=True)
     del model, engine, state
@@ -886,7 +1001,8 @@ def phase_serve_check(name: str, device) -> dict:
         if not bool(torch.isfinite(g).all()) or errs[-1] > CHECK["rel_tol"] * scales[-1]:
             raise AssertionError(f"serve check {name}: card vs CPU logits differ by {errs[-1]} "
                                  f"(max |logit| {scales[-1]}, tolerance {CHECK['rel_tol']} of it)")
-    rec = {"model": name, "dtype": "float32", "batch": B, "prompt": S, "decode_steps": steps,
+    rec = {"model": name, "layers": cfg.n_layers, "dtype": "float32", "batch": B, "prompt": S,
+           "decode_steps": steps,
            "max_abs_err": max(errs), "max_abs_err_by_step": errs, "max_abs_logit": max(scales),
            "rel_tol": CHECK["rel_tol"]}
     print("[serve-check] " + json.dumps(rec), flush=True)
@@ -911,6 +1027,7 @@ def main() -> int:
     timing_batch = phase_batch_kernel_vs_plain(device)
     timing_flash = phase_flash_vs_plain(device)
     timing_ssd = phase_ssd_vs_plain(device)
+    timing_rglru = phase_rglru_vs_plain(device)
 
     launches = {}
     for name, run in (
@@ -937,6 +1054,9 @@ def main() -> int:
     for name in SERVE_MODELS:
         phase_serve_check(name, device)
 
+    def served(kernel: str) -> int:  # launches over every served generate
+        return sum(r["launches"][kernel] for r in serve.values())
+
     kernels = []
     for name, replaces, rec, n in (
         ("placement_sweep", "src/repro/kernels/placement_step.py:136", timing,
@@ -944,9 +1064,9 @@ def main() -> int:
         ("placement_sweep_batch", "src/repro/kernels/placement_step.py:267", timing_batch,
          sum(many_launches.values())),
         ("flash_attention", "src/repro/kernels/flash_attention.py:121", timing_flash,
-         serve["smollm-135m"]["launches"]["flash_attention"]),
-        ("ssd_scan", "src/repro/kernels/ssd_scan.py:103", timing_ssd,
-         serve["mamba2-130m"]["launches"]["ssd_scan"]),
+         served("flash_attention")),
+        ("ssd_scan", "src/repro/kernels/ssd_scan.py:103", timing_ssd, served("ssd_scan")),
+        ("rglru_scan", "src/repro/kernels/rglru_scan.py:75", timing_rglru, served("rglru_scan")),
     ):
         kernels.append({
             "name": name,

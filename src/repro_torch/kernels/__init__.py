@@ -2,8 +2,8 @@
 
 ``ops`` dispatches on the tensors' device (CPU: plain version, CUDA: the
 kernel): ``placement_sweep`` / ``placement_sweep_batch`` (the Alg-2
-sweeps), ``flash_attention`` and ``ssd_scan`` (the serving path's
-prefill).  ``ref`` holds the ML kernels' plain oracles; ``_build``
+sweeps), ``flash_attention``, ``ssd_scan`` and ``rglru_scan`` (the
+serving path's prefill).  ``ref`` holds the ML kernels' plain oracles; ``_build``
 compiles ``csrc/*.cu`` with ``nvcc`` on first launch.
 """
 

@@ -17,9 +17,10 @@ from .placement_step import (
     placement_sweep_cuda,
     placement_sweep_plain,
 )
+from .rglru_scan import rglru_scan_cuda, rglru_scan_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
-__all__ = ["flash_attention", "ssd_scan", "placement_sweep", "placement_sweep_batch"]
+__all__ = ["flash_attention", "ssd_scan", "rglru_scan", "placement_sweep", "placement_sweep_batch"]
 
 
 def _pick(t: torch.Tensor, plain, kernel, name: str):
@@ -112,3 +113,11 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = Fals
     fn = _pick(x, ssd_scan_plain, ssd_scan_cuda, "ssd_scan")
     x, dt, A, Bm, Cm, D = (t.contiguous() for t in (x, dt, A, Bm, Cm, D))
     return fn(x, dt, A, Bm, Cm, D, chunk=chunk, return_state=return_state)
+
+
+def rglru_scan(x, r_gate, i_gate, log_lambda, *, c: float = 8.0, return_state: bool = False):
+    """RG-LRU scan of x, r, i (B, S, W) with log_lambda (W,).  Returns y, or
+    ``(y, final_state)`` with a float32 (B, W) state."""
+    fn = _pick(x, rglru_scan_plain, rglru_scan_cuda, "rglru_scan")
+    x, r_gate, i_gate, log_lambda = (t.contiguous() for t in (x, r_gate, i_gate, log_lambda))
+    return fn(x, r_gate, i_gate, log_lambda, c=c, return_state=return_state)

@@ -7,10 +7,13 @@
 * ``ssd_chunked_ref`` — SSD in the chunked dual form (intra-chunk
   quadratic products, inter-chunk state recurrence).
 * ``ssd_decode_step`` — the single-token SSD recurrence of decode.
+* ``rglru_ref``       — the RG-LRU recurrence (Griffin) over a sequence.
+* ``rglru_decode_step`` — its single-token step.
 
 They run on the inputs' device.  ``attention_ref`` is the plain version
-of the flash-attention kernel and ``ssd_chunked_ref`` that of the SSD
-scan kernel (``flash_attention.py``, ``ssd_scan.py``).
+of the flash-attention kernel, ``ssd_chunked_ref`` that of the SSD scan
+kernel and ``rglru_ref`` that of the RG-LRU scan kernel
+(``flash_attention.py``, ``ssd_scan.py``, ``rglru_scan.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ import math
 
 import torch
 
-__all__ = ["attention_ref", "ssd_ref", "ssd_chunked_ref", "ssd_decode_step"]
+__all__ = [
+    "attention_ref", "ssd_ref", "ssd_chunked_ref", "ssd_decode_step", "rglru_ref",
+    "rglru_decode_step",
+]
 
 _NEG_INF = -1e30
 
@@ -180,3 +186,70 @@ def ssd_decode_step(
     y = torch.einsum("bhd,bhdp->bhp", Cf, new_state)
     y = y + xf * D.float()[None, :, None]
     return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma, arXiv:2402.19427)
+# ---------------------------------------------------------------------------
+
+
+def _rglru_gates(x, r_gate, i_gate, log_lambda, c: float):
+    """(a, gated) in float32: a = exp(-c softplus(lam) sigmoid(r)) and
+    gated = sqrt(max(1 - a^2, 1e-12)) sigmoid(i) x."""
+    xf = x.float()
+    rf = torch.sigmoid(r_gate.float())
+    i_f = torch.sigmoid(i_gate.float())
+    lf = log_lambda.float()
+    lam = torch.clamp(lf, min=0.0) + torch.log1p(torch.exp(-lf.abs()))  # softplus, as logaddexp(x, 0)
+    a = torch.exp(-c * lam * rf)
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i_f * xf)
+
+
+def rglru_ref(
+    x: torch.Tensor,  # (B, S, W)
+    r_gate: torch.Tensor,  # (B, S, W) — recurrence gate pre-sigmoid
+    i_gate: torch.Tensor,  # (B, S, W) — input gate pre-sigmoid
+    log_lambda: torch.Tensor,  # (W,)  — learnable decay logits
+    *,
+    c: float = 8.0,
+    initial_state: torch.Tensor | None = None,
+    return_state: bool = False,
+):
+    """RG-LRU:  a_t = exp(-c * softplus(lam) * sigmoid(r_t)),
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (sigmoid(i_t) * x_t), h_{-1} = 0
+    (or ``initial_state``), float32 inside.
+
+    A doubling (Hillis-Steele) scan over time: log2(S) rounds, each
+    combining every step with the one ``d`` before it, so the work is whole
+    tensors rather than S dependent steps.  Returns h in x's type and, with
+    ``return_state``, h[:, -1] rounded to x's type, as float32.
+    """
+    a, b = _rglru_gates(x, r_gate, i_gate, log_lambda[None, None, :], c)
+    if initial_state is not None:
+        b[:, 0] = b[:, 0] + a[:, 0] * initial_state.float()
+    S = x.shape[1]
+    d = 1
+    while d < S:
+        # (a1, b1) then (a2, b2) -> (a1 a2, b1 a2 + b2): step t takes t - d
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    h = b.to(x.dtype)
+    if return_state:
+        return h, h[:, -1].float()
+    return h
+
+
+def rglru_decode_step(
+    state: torch.Tensor,  # (B, W) f32
+    x: torch.Tensor,  # (B, W)
+    r_gate: torch.Tensor,
+    i_gate: torch.Tensor,
+    log_lambda: torch.Tensor,
+    *,
+    c: float = 8.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One RG-LRU step.  Returns (h in x's type, h in float32)."""
+    a, gated = _rglru_gates(x, r_gate, i_gate, log_lambda[None, :], c)
+    h = a * state + gated
+    return h.to(x.dtype), h

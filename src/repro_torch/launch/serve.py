@@ -5,8 +5,9 @@
 
 The flags are the JAX package's ``launch/serve.py``'s, plus ``--device``:
 ``cuda`` (the default) runs the kernels on the card and raises without
-one; ``cpu`` runs their plain versions.  Only the ``dense`` and ``ssm``
-families are ported.
+one; ``cpu`` runs their plain versions.  The ``dense`` (smollm-135m), ``ssm``
+(mamba2-130m) and ``hybrid`` (recurrentgemma-2b) families are ported; any
+other ``--arch`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

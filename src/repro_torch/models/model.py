@@ -1,8 +1,8 @@
-"""Model facade over the ported families (``dense``, ``ssm``).
+"""Model facade over the ported families (``dense``, ``ssm``, ``hybrid``).
 
 ``Model`` is an ``nn.Module`` holding the stacked parameter tree under the
-JAX package's names (``embed``, ``blocks.attn.wq``, ...), and exposes the
-serving entry points:
+JAX package's names (``embed``, ``blocks.attn.wq``, ``super.0.log_lambda``,
+...), and exposes the serving entry points:
 
 * ``forward``      — full-sequence logits (prefill without cache)
 * ``prefill``      — full sequence -> (last_logits, decode state)
@@ -11,7 +11,7 @@ serving entry points:
 
 The parameters live on ``device``, ``"cuda"`` unless the caller asks for
 another: building a model without ``device=`` on a host with no card
-raises.  The other families (MoE, hybrid, enc-dec, VLM) are not ported yet
+raises.  The other families (MoE, enc-dec, VLM) are not ported yet
 (ROADMAP queue 1, item 8) and raise ``NotImplementedError``.
 """
 
@@ -23,13 +23,13 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from . import ssm, transformer
+from . import rglru, ssm, transformer
 from .params import init_params, param_count
 from .transformer import ExecConfig
 
 __all__ = ["Model", "ExecConfig", "resolve_device"]
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -100,6 +100,8 @@ class Model(nn.Module):
     def specs(self) -> dict:
         if self.cfg.family == "ssm":
             return ssm.ssm_specs(self.cfg)
+        if self.cfg.family == "hybrid":
+            return rglru.hybrid_specs(self.cfg)
         return transformer.lm_specs(self.cfg)
 
     @property
@@ -115,6 +117,8 @@ class Model(nn.Module):
     def forward(self, batch: dict) -> torch.Tensor:
         if self.cfg.family == "ssm":
             logits, _ = ssm.ssm_forward(self.cfg, self.ex, self.params, batch)
+        elif self.cfg.family == "hybrid":
+            logits, _ = rglru.hybrid_forward(self.cfg, self.ex, self.params, batch)
         else:
             logits, _ = transformer.lm_forward(self.cfg, self.ex, self.params, batch)
         return logits
@@ -125,6 +129,10 @@ class Model(nn.Module):
         """Returns (last_token_logits, decode_state)."""
         if self.cfg.family == "ssm":
             logits, _, state = ssm.ssm_forward(
+                self.cfg, self.ex, self.params, batch, return_state=True
+            )
+        elif self.cfg.family == "hybrid":
+            logits, _, state = rglru.hybrid_forward(
                 self.cfg, self.ex, self.params, batch, return_state=True
             )
         else:
@@ -139,11 +147,16 @@ class Model(nn.Module):
         state).  The state is updated in place and returned."""
         if self.cfg.family == "ssm":
             return ssm.ssm_decode_step(self.cfg, self.ex, self.params, state, tokens, int(idx))
+        if self.cfg.family == "hybrid":
+            return rglru.hybrid_decode_step(self.cfg, self.ex, self.params, state, tokens,
+                                            int(idx))
         return transformer.lm_decode_step(self.cfg, self.ex, self.params, state, tokens, int(idx))
 
     def init_state(self, batch_size: int, max_len: int):
         if self.cfg.family == "ssm":
             return ssm.init_ssm_state(self.cfg, batch_size, device=self.device)
+        if self.cfg.family == "hybrid":  # fixed-size: max_len is not used
+            return rglru.init_hybrid_state(self.cfg, batch_size, device=self.device)
         return transformer.init_cache(self.cfg, batch_size, max_len, device=self.device)
 
 

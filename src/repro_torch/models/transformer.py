@@ -24,7 +24,7 @@ from .params import ParamSpec
 
 __all__ = ["ExecConfig", "block_specs", "lm_specs", "lm_forward", "lm_decode_step", "init_cache"]
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 8: MoE, M-RoPE/VLM)"
+_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 8: MoE, M-RoPE/VLM, enc-dec)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,9 +2,10 @@
 
 The engine prefills a batch of prompts together, then decodes with a
 fixed-size state: KV caches are grown to ``max_len`` after the prefill so
-every decode step has the same shapes.  It runs on the device of the
-model's parameters (``Model(device=...)``, CUDA unless the caller asks for
-the CPU); the prefill goes through the flash-attention or SSD-scan kernel
+every decode step has the same shapes (the SSM and hybrid states are
+fixed-size already).  It runs on the device of the model's parameters
+(``Model(device=...)``, CUDA unless the caller asks for the CPU); the
+prefill goes through the flash-attention, SSD-scan or RG-LRU-scan kernel
 there, decode through plain torch ops.
 
 Greedy decoding takes ``argmax`` (the first maximum, as ``jnp.argmax``
@@ -53,7 +54,9 @@ def make_decode_step(model: Model) -> Callable:
 
 def _pad_cache_to(state: Any, family: str, max_len: int) -> Any:
     """Grow a transformer's prefill caches ``(L, B, S, K, hd)`` to
-    ``max_len`` positions (zeros after the prompt)."""
+    ``max_len`` positions (zeros after the prompt).  The ssm and hybrid
+    states (conv tails, recurrent states, the hybrid's ring caches of
+    ``local_window`` slots) are fixed-size and pass through."""
 
     def pad_kv(arr):
         cur = arr.shape[2]
@@ -63,7 +66,7 @@ def _pad_cache_to(state: Any, family: str, max_len: int) -> Any:
 
     if family == "dense":
         return (pad_kv(state[0]), pad_kv(state[1]))
-    return state  # the ssm state is fixed-size
+    return state  # ssm / hybrid states are fixed-size
 
 
 class ServeEngine:

@@ -7,10 +7,11 @@ imports no JAX, so it also runs on a machine that has only torch:
     PYTHONPATH=src python -m pytest -q -m needs_cuda tests/test_torch_cuda_kernels.py
 
 The placement sweeps' outputs are compared exactly: kernel and plain
-version run the same float64 operations in the same order.  The attention
-and SSD kernels sum in another order than their plain versions, so they
-are held to the reference kernel tests' tolerances: 2e-5 at float32, 2e-2
-at bfloat16.
+version run the same float64 operations in the same order.  The attention,
+SSD and RG-LRU kernels sum in another order than their plain versions, so
+they are held to the reference kernel tests' tolerances: 2e-5 at float32,
+2e-2 at bfloat16 (where the RG-LRU state also differs by the plain
+version's rounding of it to bfloat16).
 """
 
 import pytest
@@ -35,6 +36,7 @@ from repro_torch.kernels.placement_step import (  # noqa: E402
     placement_sweep_cuda,
     placement_sweep_plain,
 )
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain  # noqa: E402
 
 
@@ -271,6 +273,20 @@ def test_flash_attention_kernel_matches_plain(cuda_device, case, name):
 
 
 @pytest.mark.needs_cuda
+def test_flash_attention_kernel_at_recurrentgemma_local_attention(cuda_device):
+    """recurrentgemma-2b's attention layers: hd 256, 10 query heads on one kv
+    head, causal with a 2048 window that binds at S = T = 4096."""
+    case = (2, 4096, 4096, 10, 1, 256, True, 2048)
+    q, k, v = _qkv(case, torch.bfloat16, cuda_device, seed=4)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=2048)
+    want = flash_attention_plain(q, k, v, causal=True, window=2048)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    _close(got, want, ML_DTYPES["bfloat16"][1])
+
+
+@pytest.mark.needs_cuda
 def test_flash_attention_kernel_q_offset_and_decode_route(cuda_device):
     """A prefill continuation (q_offset > 0, S < T) runs the kernel; decode
     (S == 1 with a kv_len) takes chunked_attention and launches nothing."""
@@ -341,11 +357,72 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda_device):
         ssd_scan_cuda(x2, dt2, A2, B2, C2, D2, chunk=16)
 
 
+# RG-LRU: the reference kernel tests' cases (B, S, W) and recurrentgemma-2b's
+# prefill shape (8 prompts of 1024 tokens, lru_width 2560).
+RGLRU_CASES = [(2, 128, 64), (1, 100, 200), (2, 64, 256), (1, 32, 16)]
+RGLRU_PREFILL = (8, 1024, 2560)
+
+
+def _rglru(case, dtype, device, seed=0):
+    B, S, W = case
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.tensor(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    return (*(f(rng.standard_normal((B, S, W))).to(dtype) for _ in range(3)),
+            f(rng.standard_normal(W)))
+
+
 @pytest.mark.needs_cuda
-@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m"])
+@pytest.mark.parametrize("case", [*RGLRU_CASES, RGLRU_PREFILL], ids=str)
+@pytest.mark.parametrize("name", ML_DTYPES)
+def test_rglru_scan_kernel_matches_plain(cuda_device, case, name):
+    dtype, tol = ML_DTYPES[name]
+    args = _rglru(case, dtype, cuda_device)
+    before = rglru_scan_cuda.launches
+    got_y, got_st = ops.rglru_scan(*args, return_state=True)  # CUDA tensors: the kernel
+    want_y, want_st = rglru_scan_plain(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert rglru_scan_cuda.launches == before + 1
+    assert got_y.dtype == dtype and got_st.dtype == torch.float32
+    assert got_st.shape == (case[0], case[2])
+    _close(got_y, want_y, tol)
+    _close(got_st, want_st, tol)
+
+
+@pytest.mark.needs_cuda
+def test_rglru_scan_kernel_layouts_and_lambda_types(cuda_device):
+    """A non-contiguous input goes through ops.rglru_scan (made contiguous
+    there), and a bfloat16 log_lambda (as Model(dtype=bfloat16) stores it)
+    is read as is."""
+    x, r, i, lam = _rglru((2, 48, 64), torch.float32, cuda_device, seed=1)
+    want = rglru_scan_plain(x, r, i, lam)
+    xt = x.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not xt.is_contiguous()
+    _close(ops.rglru_scan(xt, r, i, lam), want, 2e-5)
+    lam16 = lam.bfloat16()
+    _close(rglru_scan_cuda(x, r, i, lam16), rglru_scan_plain(x, r, i, lam16), 2e-5)
+
+
+@pytest.mark.needs_cuda
+def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda_device):
+    x, r, i, lam = _rglru((1, 16, 32), torch.float32, cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rglru_scan_cuda(x.half(), r.half(), i.half(), lam)
+    with pytest.raises(TypeError, match="log_lambda must be"):
+        rglru_scan_cuda(x, r, i, lam.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), r, i, lam)
+    before = rglru_scan_cuda.launches
+    y, st = rglru_scan_cuda(x[:, :0], r[:, :0], i[:, :0], lam, return_state=True)
+    assert rglru_scan_cuda.launches == before
+    assert y.shape == (1, 0, 32) and not st.any()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m", "recurrentgemma-2b"])
 def test_reduced_models_on_the_card_match_the_cpu(cuda_device, name):
-    """Reduced models at float32: prefill on the card (through kernel 3 or
-    4, once a layer) and a decode step equal the CPU's plain path."""
+    """Reduced models at float32: prefill on the card (through kernels 3, 4
+    or 5, once a layer of their kind) and a decode step equal the CPU's
+    plain path."""
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
 
@@ -353,10 +430,12 @@ def test_reduced_models_on_the_card_match_the_cpu(cuda_device, name):
     gpu = Model(cfg, generator=torch.Generator(cuda_device).manual_seed(1), device=cuda_device)
     cpu = Model(cfg, params=_cpu_tree(gpu.params), device="cpu")
     tok = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 40)))
-    kernel = flash_attention_cuda if cfg.family == "dense" else ssd_scan_cuda
-    before = kernel.launches
+    kinds = cfg.layer_kinds()
+    kernels = {flash_attention_cuda: kinds.count("attn"), ssd_scan_cuda: kinds.count("ssm"),
+               rglru_scan_cuda: kinds.count("rec")}
+    before = {k: k.launches for k in kernels}
     g_last, g_state = gpu.prefill({"tokens": tok.to(cuda_device)})
-    assert kernel.launches == before + cfg.n_layers
+    assert {k: k.launches - before[k] for k in kernels} == kernels
     c_last, c_state = cpu.prefill({"tokens": tok})
     _close(g_last.cpu(), c_last, 1e-4)
     if cfg.family == "dense":

@@ -1,13 +1,16 @@
 """The port's models against the JAX package's, on the CPU.
 
-Reduced smollm-135m (dense GQA) and mamba2-130m (SSD) run on the
-reference's own weights, carried across by ``convert.params_from``:
-``forward`` and ``prefill`` logits are held against the reference's
+Reduced smollm-135m (dense GQA), mamba2-130m (SSD) and recurrentgemma-2b
+(Griffin hybrid, at its reduced 3 layers and at 5 layers, where the two
+``rest`` layers after the super-block run) use the reference's own
+weights, carried across by ``convert.params_from``: ``forward`` and
+``prefill`` logits and every state leaf are held against the reference's
 ``Model`` under both of its attention paths (the Pallas kernels in
 interpret mode, and the XLA path), and ``decode_step`` continues from the
 reference's prefill state (``convert.state_from``), at the tolerance of
-the reference's model tests (1e-4).  The configs, spec trees and parameter
-counts equal the reference's.
+the reference's model tests (1e-4).  The reduced hybrid's local window is
+16 and its prompts are longer, so the ring cache wraps.  The configs, spec
+trees and parameter counts equal the reference's.
 """
 
 import dataclasses
@@ -29,23 +32,52 @@ from repro.models.params import param_count as ref_param_count  # noqa: E402
 from repro_torch.configs import get_arch, list_archs  # noqa: E402
 from repro_torch.convert import params_from, state_from  # noqa: E402
 from repro_torch.models import Model, init_params, map_specs, param_count  # noqa: E402
-from repro_torch.models import ssm, transformer  # noqa: E402
+from repro_torch.models import rglru, ssm, transformer  # noqa: E402
 from repro_torch.models.model import resolve_device  # noqa: E402
 
-ARCHS = ["smollm-135m", "mamba2-130m"]
+# "name@L": the reduced config cut to L layers (recurrentgemma-2b@5: one
+# (rec, rec, attn) super-block and the two-layer ``rest``).
+ARCHS = ["smollm-135m", "mamba2-130m", "recurrentgemma-2b", "recurrentgemma-2b@5"]
 IMPLS = ["pallas", "xla"]
 B, S, EXTRA = 2, 24, 3
 TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_models.py's prefill/decode tolerance
 
 
+def _reduced(get, name):
+    base, _, layers = name.partition("@")
+    cfg = get(base).reduced()
+    return dataclasses.replace(cfg, n_layers=int(layers)) if layers else cfg
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
     """(arch, reference model factory, its params, the port's model on them)."""
-    cfg = ref_get_arch(request.param).reduced()
+    cfg = _reduced(ref_get_arch, request.param)
     params = RefModel(cfg).init(jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, params)
-    port = Model(get_arch(request.param).reduced(), params=params_from(tree, "cpu"), device="cpu")
+    port = Model(_reduced(get_arch, request.param), params=params_from(tree, "cpu"),
+                 device="cpu")
     return request.param, cfg, params, port
+
+
+def _ref_leaves(tree) -> dict:
+    """A reference state's leaves by tree path ("0", "super/2/ck", ...)."""
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): leaf
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _port_leaves(tree, prefix=()) -> dict:
+    """The port's state leaves by the same paths."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {"/".join(prefix): tree}
+    out = {}
+    for k, v in items:
+        out.update(_port_leaves(v, (*prefix, str(k))))
+    return out
 
 
 def _tokens(cfg, seed=7, n=S + EXTRA):
@@ -73,13 +105,14 @@ def test_prefill_logits_and_state_match_reference(pair, impl):
     want_last, want_state = _ref_model(cfg, impl).prefill(params, {"tokens": jnp.asarray(tok)})
     got_last, got_state = port.prefill({"tokens": torch.from_numpy(tok)})
     np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last), **TOL)
-    want_leaves = jax.tree.leaves(want_state)  # (k, v), or the dict's leaves by sorted key
-    ported = (list(got_state) if isinstance(got_state, tuple)
-              else [got_state[k] for k in sorted(got_state)])
-    assert [tuple(a.shape) for a in ported] == [tuple(a.shape) for a in want_leaves]
-    for g, w in zip(ported, want_leaves, strict=True):
-        assert g.dtype == (torch.float32 if w.dtype == jnp.float32 else torch.bfloat16)
-        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), **TOL)
+    want_leaves, ported = _ref_leaves(want_state), _port_leaves(got_state)
+    assert sorted(ported) == sorted(want_leaves)
+    for path, w in want_leaves.items():
+        g = ported[path]
+        assert tuple(g.shape) == tuple(w.shape), path
+        assert g.dtype == (torch.float32 if w.dtype == jnp.float32 else torch.bfloat16), path
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), **TOL,
+                                   err_msg=path)
 
 
 def test_decode_steps_from_reference_state_match_reference(pair):
@@ -99,8 +132,11 @@ def test_decode_steps_from_reference_state_match_reference(pair):
         want, state = ref.decode_step(params, state, jnp.asarray(step), jnp.int32(S + t))
         got, port_state = port.decode_step(port_state, torch.from_numpy(step), S + t)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    for g, w in zip(jax.tree.leaves(port_state), jax.tree.leaves(state), strict=True):
-        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), **TOL)
+    want_leaves, ported = _ref_leaves(state), _port_leaves(port_state)
+    assert sorted(ported) == sorted(want_leaves)
+    for path, w in want_leaves.items():
+        np.testing.assert_allclose(ported[path].float().numpy(), np.asarray(w, np.float32),
+                                   **TOL, err_msg=path)
 
 
 def test_prefill_then_decode_matches_forward(pair):
@@ -130,7 +166,7 @@ def test_configs_equal_reference():
             assert port_cfg.param_count() == ref_cfg.param_count()
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m", "recurrentgemma-2b"])
 def test_spec_trees_and_counts_equal_reference(name):
     """Full-width spec trees: the same names, shapes, axes and initializers,
     so the reference's parameters carry across name for name."""
@@ -142,8 +178,24 @@ def test_spec_trees_and_counts_equal_reference(name):
     assert param_count(port_specs) == ref_param_count(ref_specs)
 
 
+def test_recurrentgemma_full_config_counts_the_published_parameters():
+    """26 layers, (rec, rec, attn) x 8 then the (rec, rec) ``rest``: the
+    reference's 3,343,495,680 parameters, counted by the port's Model
+    without building it."""
+    cfg = get_arch("recurrentgemma-2b")
+    specs = _specs(cfg)
+    assert sorted(specs["super"]) == ["0", "1", "2"] and sorted(specs["rest"]) == ["0", "1"]
+    assert specs["super"]["0"]["log_lambda"].shape == (8, cfg.lru_width)
+    assert specs["rest"]["1"]["w_out"].shape == (1, cfg.lru_width, cfg.d_model)
+    assert param_count(specs) == 3_343_495_680 == RefModel(ref_get_arch(cfg.name)).n_params()
+
+
 def _specs(cfg):
-    return ssm.ssm_specs(cfg) if cfg.family == "ssm" else transformer.lm_specs(cfg)
+    if cfg.family == "ssm":
+        return ssm.ssm_specs(cfg)
+    if cfg.family == "hybrid":
+        return rglru.hybrid_specs(cfg)
+    return transformer.lm_specs(cfg)
 
 
 def _flat(specs, mapper=map_specs):
@@ -188,7 +240,7 @@ def test_model_keeps_the_reference_tree_names(pair):
     assert not any(p.requires_grad for p in port.parameters())
 
 
-@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "recurrentgemma-2b",
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "dbrx-132b",
                                   "seamless-m4t-large-v2", "qwen2-vl-2b"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):

@@ -2,9 +2,12 @@
 
 ``ServeEngine.generate`` with greedy decoding gives the same tokens as the
 reference's ``ServeEngine(..., jit=False)`` on the same weights (carried
-across by ``convert.params_from``), for the dense (smollm-135m) and SSM
-(mamba2-130m) families at reduced width.  Also: the engine's own
-behaviour (cache growth, early stop, seeded sampling) and the launcher.
+across by ``convert.params_from``), for the dense (smollm-135m), SSM
+(mamba2-130m) and hybrid (recurrentgemma-2b) families at reduced width.
+The hybrid's prompts run past its reduced local window of 16, or start
+short of it and decode past it, so the ring cache wraps.  Also: the
+engine's own behaviour (cache growth, early stop, seeded sampling) and the
+launcher.
 """
 
 import pytest
@@ -42,6 +45,8 @@ def _pair(name, seed=0, impl="xla"):
     ("smollm-135m", 3, 33, 8, 1),
     ("mamba2-130m", 2, 16, 6, 0),
     ("mamba2-130m", 3, 40, 8, 1),
+    ("recurrentgemma-2b", 2, 20, 6, 0),
+    ("recurrentgemma-2b", 3, 9, 12, 1),
 ])
 def test_greedy_generate_equals_reference(name, B, S, new, seed):
     cfg, ref, params, port = _pair(name, seed)
@@ -91,6 +96,31 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
     assert "generated (2, 4) tokens" in capsys.readouterr().out
     assert serve_cli.main(["--arch", "mamba2-130m", "--batch", "2", "--prompt-len", "8",
                            "--new-tokens", "4", "--device", "cpu", "--temperature", "0.7"]) == 0
+
+
+def test_launcher_serves_recurrentgemma_on_the_cpu(capsys):
+    """The reference's CLI test drives ``--arch recurrentgemma-2b``; the
+    port's launcher serves the same reduced hybrid, past its window."""
+    assert serve_cli.main(["--arch", "recurrentgemma-2b", "--batch", "2", "--prompt-len", "24",
+                           "--new-tokens", "4", "--device", "cpu"]) == 0
+    assert "generated (2, 4) tokens" in capsys.readouterr().out
+
+
+def test_hybrid_state_passes_through_the_engine_fixed_size():
+    """The hybrid's decode state is fixed-size: ``_pad_cache_to`` hands it
+    on unchanged, its ring caches hold ``local_window`` slots whatever the
+    prompt, and ``init_state`` ignores ``max_len``."""
+    cfg, _, _, port = _pair("recurrentgemma-2b", 3)
+    tok = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 5)))
+    _, state = make_prefill_step(port)({"tokens": tok})
+    assert _pad_cache_to(state, "hybrid", 64) is state
+    zero = port.init_state(2, 64)
+    assert sorted(zero) == sorted(state) == ["super"]
+    for i in ("0", "1", "2"):
+        for k, v in state["super"][i].items():
+            assert v.shape == zero["super"][i][k].shape and v.dtype == zero["super"][i][k].dtype
+    assert state["super"]["2"]["ck"].shape == (1, 2, cfg.local_window, cfg.n_kv_heads,
+                                               cfg.head_dim)
 
 
 def test_engine_and_launcher_ask_for_cuda_by_default():
