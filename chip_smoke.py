@@ -7,8 +7,9 @@ path behind its jobs) on one CUDA card.
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. build every CUDA kernel of the main paths from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, started together) and print the card's name
-   and power limit;
+   (one ``nvcc`` per source, started together), print the card's name and
+   power limit and ptxas's registers and spills of the tensor-core
+   flash-attention kernel;
 2. hold each kernel against its plain torch version on the card, at the
    main paths' shapes and at ragged sizes, and time both with CUDA events:
    the single-instance sweep at 10^6 rows, the fleet-parallel sweep at a
@@ -28,12 +29,14 @@ Phases (each raises on failure, so any failure exits non-zero):
 7. ``schedule_many``'s options: a ragged heterogeneous batch with mixed
    fleets and an infeasible member under ``resilience=1`` and under the
    preemptive resume cost, checked against the plain engine;
-8. the flash-attention kernel against its plain version (the reference
-   kernel tests' six cases at float32 and bfloat16, smollm-135m's prefill
-   shape, and recurrentgemma-2b's local attention, hd 256 with 10 query
-   heads on one kv head, at S = T = 4096 where its 2048 window binds),
-   timed beside the plain version and ``scaled_dot_product_attention`` at
-   smollm-135m's and recurrentgemma-2b's prefill shapes;
+8. the flash-attention kernels against their plain version (the reference
+   kernel tests' six cases at float32, through the CUDA-core kernel, and at
+   bfloat16, through the tensor-core kernel; smollm-135m's and
+   recurrentgemma-2b's prefill shapes, and recurrentgemma-2b's local
+   attention, hd 256 with 10 query heads on one kv head, at S = T = 4096
+   where its 2048 window binds), the tensor-core kernel timed beside the
+   plain version and ``scaled_dot_product_attention`` at both prefill
+   shapes, with its bound and achieved TFLOP/s;
 9. the SSD-scan kernel against its plain version (the reference kernel
    tests' four cases, final state included, and mamba2-130m's prefill
    shape), timed beside the plain version;
@@ -45,11 +48,12 @@ Phases (each raises on failure, so any failure exits non-zero):
     in bfloat16 with seeded random weights: 8 prompts of 1024 tokens, 32
     greedy tokens each; one kernel launch a layer in the prefill, by the
     layer's kind (30 flash-attention; 24 SSD-scan; 18 RG-LRU-scan and 8
-    flash-attention) and no other launch; prefill ms, decode ms a token,
-    tokens/s and the device split;
+    flash-attention, every one on the tensor-core kernel) and no other
+    launch; prefill ms, decode ms a token, tokens/s and the device split;
 11. the three models at full width and depth in float32 on the card and on
     the CPU (the plain path) with the same weights: 2 prompts of 128 tokens
-    and 4 decode steps fed the same tokens, logits compared (the CPU holds
+    and 4 decode steps fed the same tokens, logits compared, the card's
+    float32 prefill on the CUDA-core flash kernel (the CPU holds
     recurrentgemma-2b's 13.4 GB of float32 weights once).
 
 Float32 matrix products run in full float32 on the card
@@ -285,7 +289,30 @@ def phase_build() -> dict:
         _build.load_library(name)
     secs = time.perf_counter() - t0
     print(f"[build] {sources} in {secs:.2f} s -> {_build.build_dir()}", flush=True)
-    return {"sources": sources, "seconds": secs}
+    ptxas = _ptxas_summary(_build.build_log("flash_attention_mma"), "flash_attention_kernel_mma")
+    print("[build] flash_attention_mma ptxas: " + json.dumps(ptxas), flush=True)
+    return {"sources": sources, "seconds": secs, "flash_attention_mma_ptxas": ptxas}
+
+
+def _ptxas_summary(log: str, kernel: str) -> dict:
+    """Registers and spill bytes of each instance of ``kernel``, keyed by its
+    integer template argument (the head dim), from nvcc's ``-Xptxas=-v``
+    report."""
+    out: dict = {}
+    cur = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            args = line.split(kernel)[1] if kernel in line else None
+            cur = None if args is None else out.setdefault(
+                "hd" + args.split("ILi")[1].split("E")[0], {})
+        elif cur is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            cur.update(spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(line.split("Used")[1].split()[0])
+    if not out:
+        raise AssertionError(f"no ptxas report for {kernel}")
+    return out
 
 
 # Device cycles of the spin queued ahead of each timed run: about 1 ms at
@@ -562,7 +589,9 @@ def phase_options(engine: str) -> None:
 
 def _counted(run):
     """Run ``run()`` with every kernel's launch count set to 0 just before
-    it; return its result and the counts read just after."""
+    it; return its result and the counts read just after
+    (``flash_attention_mma``: the flash launches on the tensor-core kernel,
+    a part of ``flash_attention``'s)."""
     from repro_torch.kernels.placement_step import placement_sweep_batch_cuda, placement_sweep_cuda
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -575,8 +604,10 @@ def _counted(run):
                "rglru_scan": rglru_scan_cuda}
     for fn in kernels.values():
         fn.launches = 0
+    flash_attention_cuda.mma_launches = 0
     out = run()
-    return out, {name: fn.launches for name, fn in kernels.items()}
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    return out, {**counts, "flash_attention_mma": flash_attention_cuda.mma_launches}
 
 
 def _check_many_launches(what: str, launches: dict) -> None:
@@ -722,11 +753,14 @@ def _time_attention(case, device, seed: int) -> dict:
         qt, kt, vt, is_causal=True, enable_gqa=True), ML_REPS)
     visible = S * (S + 1) // 2  # causal, S == T, no binding window: query i sees keys 0..i
     n_bytes = 2 * (2 * B * S * H * hd + 2 * B * T * K * hd)  # q, o, k, v in bf16
+    n_ops = 4 * B * H * hd * visible
     return {"shape": dict(zip(("B", "S", "T", "H", "K", "hd", "causal", "window"), case,
                               strict=True)),
             "dtype": "bfloat16", "max_abs_err": err, "sdpa_vs_plain_max_abs_err": lib_err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            **_ml_bound(4 * B * H * hd * visible, n_bytes)}
+            "tflops": n_ops / (ms * 1e-3) / 1e12, "sdpa_tflops": n_ops / (library_ms * 1e-3) / 1e12,
+            "kernel_over_sdpa": ms / library_ms, "plain_over_kernel": plain_ms / ms,
+            **_ml_bound(n_ops, n_bytes)}
 
 
 def phase_flash_vs_plain(device) -> dict:
@@ -743,8 +777,13 @@ def phase_flash_vs_plain(device) -> dict:
         for name in names:
             q, k, v = _attn_inputs(case, getattr(torch, name), device, i)
             kw = dict(causal=case[6], window=case[7])
+            mma_before = flash_attention_cuda.mma_launches
             got, want = flash_attention_cuda(q, k, v, **kw), flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
+            mma = flash_attention_cuda.mma_launches - mma_before
+            if mma != (name == "bfloat16"):
+                raise AssertionError(f"flash_attention {case} {name}: {mma} tensor-core launches; "
+                                     f"want bfloat16 on the tensor-core kernel, float32 off it")
             errs[f"{case} {name}"] = _err(got, want, ML_TOL[name], f"flash_attention {case} {name}")
     print(f"[kernel] flash_attention: {len(errs)} cases within tolerance (the reference's "
           f"and recurrentgemma-2b's window {RGEMMA_ATTN_WINDOW}), max abs err "
@@ -757,6 +796,12 @@ def phase_flash_vs_plain(device) -> dict:
     rec["recurrentgemma"] = _time_attention(RGEMMA_ATTN, device, 96)
     print("[kernel] " + json.dumps({"flash_attention_timing_recurrentgemma":
                                     rec["recurrentgemma"]}), flush=True)
+    for what, r in (("smollm-135m", rec), ("recurrentgemma-2b", rec["recurrentgemma"])):
+        print(f"[kernel] flash_attention (tensor cores) at {what}'s prefill: {r['ms']:.4f} ms, "
+              f"{r['tflops']:.1f} TFLOP/s; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"plain {r['plain_ms']:.4f} ms ({r['plain_over_kernel']:.1f}x the kernel's time); "
+              f"SDPA {r['library_ms']:.4f} ms (the kernel takes {r['kernel_over_sdpa']:.2f}x)",
+              flush=True)
     return rec
 
 
@@ -924,9 +969,13 @@ def phase_serve(name: str, device) -> dict:
         return out, time.perf_counter() - t0
 
     (out, gen_s), counts = _counted(run)
-    if {k: n for k, n in counts.items() if n} != want:
+    if {k: n for k, n in counts.items() if n and k != "flash_attention_mma"} != want:
         raise AssertionError(f"serve {name}: launches {counts}; want {want} (one a layer of "
                              f"its kind, in the prefill) and no other")
+    if counts["flash_attention_mma"] != counts["flash_attention"]:
+        raise AssertionError(f"serve {name}: {counts['flash_attention_mma']} of "
+                             f"{counts['flash_attention']} flash launches on the tensor-core "
+                             f"kernel; want all of them (bfloat16)")
     if tuple(out.shape) != (B, new) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
         raise AssertionError(f"serve {name}: tokens {tuple(out.shape)} out of range")
 
@@ -982,7 +1031,10 @@ def phase_serve_check(name: str, device) -> dict:
     cpu = Model(cfg, params=_cpu_tree(gpu.params), device="cpu")
     tok = torch.from_numpy(
         np.random.default_rng(21).integers(0, cfg.vocab, (B, S)).astype(np.int32))
-    g_last, g_state = gpu.prefill({"tokens": tok.to(device)})
+    (g_last, g_state), counts = _counted(lambda: gpu.prefill({"tokens": tok.to(device)}))
+    if counts["flash_attention_mma"] or counts["flash_attention"] != cfg.layer_kinds().count("attn"):
+        raise AssertionError(f"serve check {name}: float32 prefill launches {counts}; want one "
+                             f"CUDA-core flash launch an attention layer, none on tensor cores")
     c_last, c_state = cpu.prefill({"tokens": tok})
     g_state = _pad_cache_to(g_state, cfg.family, S + steps)
     c_state = _pad_cache_to(c_state, cfg.family, S + steps)
@@ -1057,6 +1109,7 @@ def main() -> int:
     def served(kernel: str) -> int:  # launches over every served generate
         return sum(r["launches"][kernel] for r in serve.values())
 
+    sources = {"flash_attention": "flash_attention_mma"}  # the bf16 main path's kernel
     kernels = []
     for name, replaces, rec, n in (
         ("placement_sweep", "src/repro/kernels/placement_step.py:136", timing,
@@ -1064,14 +1117,14 @@ def main() -> int:
         ("placement_sweep_batch", "src/repro/kernels/placement_step.py:267", timing_batch,
          sum(many_launches.values())),
         ("flash_attention", "src/repro/kernels/flash_attention.py:121", timing_flash,
-         served("flash_attention")),
+         served("flash_attention_mma")),
         ("ssd_scan", "src/repro/kernels/ssd_scan.py:103", timing_ssd, served("ssd_scan")),
         ("rglru_scan", "src/repro/kernels/rglru_scan.py:75", timing_rglru, served("rglru_scan")),
     ):
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{sources.get(name, name)}.cu",
             "replaces": replaces,
             "launches": n,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -3,9 +3,12 @@
 ``nvcc`` compiles each source into a shared library with a plain C
 interface, which is loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``build/repro_torch/`` at the root of
-the checkout, named by a hash of the source and flags, so an edited source
-rebuilds and an unchanged one loads the library already there.  Nothing is
-built at import time: :func:`load_library` runs on a kernel's first launch.
+the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads the library already there.  Beside each library
+lies ptxas's report of its kernels' registers and spills
+(:func:`build_log`).  Nothing is built at import time:
+:func:`load_library` runs on a kernel's first launch.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -22,17 +25,26 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["MAX_SMEM", "NVCC_FLAGS", "build_dir", "check_cuda", "launch", "load_library"]
+__all__ = [
+    "MAX_SMEM", "NVCC_FLAGS", "build_dir", "build_log", "check_cuda", "flags", "launch",
+    "load_library",
+]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 
-# sm_90a: Hopper with its architecture-specific features.  -fmad=false and
-# no fast-math keep the placement sweep's float64 chain exact.
+# sm_90a: Hopper with its architecture-specific features; ptxas reports each
+# kernel's registers and spills.  No source builds with fast-math.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3", "-Xptxas=-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# -fmad=false keeps the placement sweeps' float64 chains exact against the
+# plain engine; the ML kernels fuse their multiply-adds.
+_SOURCE_FLAGS = {
+    "placement_sweep": ("-fmad=false",),
+    "placement_sweep_batch": ("-fmad=false",),
+}
 
 MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
 
@@ -59,20 +71,49 @@ def _nvcc() -> str:
     )
 
 
-def _build(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = build_dir() / f"lib{src.stem}_{digest[:16]}.so"
+def flags(name: str) -> tuple[str, ...]:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return (*NVCC_FLAGS, *_SOURCE_FLAGS.get(name, ()))
+
+
+def _digest(src: Path, headers: list[Path], flag_list: tuple[str, ...]) -> str:
+    """Hash of what a library is built from: the source, every shared
+    header (a source may include any of them, in a fixed order) and the
+    flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in headers:
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flag_list).encode())
+    return h.hexdigest()
+
+
+def _library(name: str) -> Path:
+    src = _CSRC / f"{name}.cu"
+    digest = _digest(src, sorted(_CSRC.glob("*.cuh")), flags(name))
+    return build_dir() / f"lib{name}_{digest[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas's register and spill report) from building
+    ``csrc/<name>.cu``; empty before the build."""
+    log = _library(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def _build(name: str) -> Path:
+    out = _library(name)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(_CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {src.name}:\n"
+            f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
 
@@ -82,7 +123,7 @@ def load_library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_build(_CSRC / f"{name}.cu")))
+            lib = ctypes.CDLL(str(_build(name)))
             _LIBS[name] = lib
         return lib
 

@@ -1,8 +1,11 @@
 // Flash attention (online softmax, GQA, causal / q_offset / sliding window)
-// for Hopper (sm_90a), float32 or bfloat16 in, float32 arithmetic.
+// for Hopper (sm_90a), float32 in, float32 arithmetic on the CUDA cores.
 //
-// Replaces the TPU kernel `_attn_kernel` behind `flash_attention_pallas` in
-// src/repro/kernels/flash_attention.py.
+// Replaces, for float32, the TPU kernel `_attn_kernel` behind
+// `flash_attention_pallas` in src/repro/kernels/flash_attention.py;
+// bfloat16 inputs go to the tensor-core kernel of flash_attention_mma.cu.
+// float32 stays off the tensor cores: its 2e-5 tolerance rules out bf16
+// and TF32 operands.
 //
 // What it computes, as `_attn_kernel` does: for query row i of head h (kv
 // head h // (H / K)), out = softmax(scale * q k^T) v over the visible keys,
@@ -16,9 +19,8 @@
 // What bounds it on this card: the tensor-core operations of the two
 // products (4 B H hd per visible (query, key) pair; 989 TFLOP/s bf16) are
 // above the bytes (q, k, v, o once each over 3.35 TB/s) at prefill
-// lengths.  This first version does the products on the float32 CUDA
-// cores (67 TFLOP/s), so it runs far above that bound; wgmma and TMA are
-// later work.
+// lengths.  This kernel does the products on the float32 CUDA cores (67
+// TFLOP/s), so it runs far above that bound.
 //
 // Design: one block of 256 threads per (b * H + h, tile of BQ query rows).
 // A group of G = hd / 16 lanes of a warp shares one query row; each lane
@@ -27,14 +29,13 @@
 // banks, and a score is the group's partial dots summed by shuffles.  The
 // kv axis, which the Pallas grid walked as its innermost dimension with
 // m/l/acc in VMEM scratch, is a loop inside the block: each tile of
-// BKV = 4096 / hd keys and values is converted to float32 into 32 KB of
-// static shared memory.  Scores go through the online softmax 16 keys at
+// BKV = 4096 / hd keys and values is staged into 32 KB of static shared
+// memory.  Scores go through the online softmax 16 keys at
 // a time.  The loop stops at the causal diagonal of the tile's last row
 // and, under a window, starts at the tile holding the first row's oldest
 // visible key: the tiles skipped are masked for every row of the block.
 // Inputs are read once per query tile; no scratch lives in device memory.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -47,16 +48,11 @@ constexpr int kSub = 16;   // keys per online-softmax update
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -206,20 +202,14 @@ cudaError_t launch_typed(int hd, const void* q, const void* k, const void* v, vo
 }  // namespace
 
 // q (B, S, H, hd), k and v (B, T, K, hd), o (B, S, H, hd), all contiguous
-// and of one type: dtype 0 is float32, 1 is bfloat16.  hd is 16, 32, 64,
-// 128 or 256; H % K == 0, B * H <= 65535, S >= 1 and T >= 1 are the
-// caller's checks.  Launches on `stream`, returns cudaGetLastError().
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int S, int T, int H, int K, int hd,
-                                   int q_offset, int causal, int window, float scale,
-                                   void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      dtype == 0
-          ? launch_typed<float>(hd, q, k, v, o, B, S, T, H, K, q_offset, causal, window, scale, st)
-          : launch_typed<__nv_bfloat16>(hd, q, k, v, o, B, S, T, H, K, q_offset, causal, window,
-                                        scale, st);
-  return static_cast<int>(e);
+// float32.  hd is 16, 32, 64, 128 or 256; H % K == 0, B * H <= 65535,
+// S >= 1 and T >= 1 are the caller's checks.  Launches on `stream`, returns
+// cudaGetLastError().
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
+                                   int S, int T, int H, int K, int hd, int q_offset, int causal,
+                                   int window, float scale, void* stream) {
+  return static_cast<int>(launch_typed<float>(hd, q, k, v, o, B, S, T, H, K, q_offset, causal,
+                                              window, scale, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

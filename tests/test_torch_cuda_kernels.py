@@ -260,14 +260,17 @@ def _qkv(case, dtype, device, seed=0):
 @pytest.mark.parametrize("case", ATTN_CASES, ids=str)
 @pytest.mark.parametrize("name", ML_DTYPES)
 def test_flash_attention_kernel_matches_plain(cuda_device, case, name):
+    """bfloat16 runs the tensor-core kernel, float32 the CUDA-core one."""
     dtype, tol = ML_DTYPES[name]
     causal, window = case[6], case[7]
     q, k, v = _qkv(case, dtype, cuda_device)
     before = flash_attention_cuda.launches
+    before_mma = flash_attention_cuda.mma_launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)  # CUDA tensors: the kernel
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    assert flash_attention_cuda.mma_launches == before_mma + (dtype == torch.bfloat16)
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, want, tol)
 
@@ -279,10 +282,12 @@ def test_flash_attention_kernel_at_recurrentgemma_local_attention(cuda_device):
     case = (2, 4096, 4096, 10, 1, 256, True, 2048)
     q, k, v = _qkv(case, torch.bfloat16, cuda_device, seed=4)
     before = flash_attention_cuda.launches
+    before_mma = flash_attention_cuda.mma_launches
     got = ops.flash_attention(q, k, v, causal=True, window=2048)
     want = flash_attention_plain(q, k, v, causal=True, window=2048)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    assert flash_attention_cuda.mma_launches == before_mma + 1
     _close(got, want, ML_DTYPES["bfloat16"][1])
 
 
@@ -298,6 +303,57 @@ def test_flash_attention_kernel_q_offset_and_decode_route(cuda_device):
     before = flash_attention_cuda.launches
     ops.flash_attention(q[:, :1], k, v, q_offset=70, kv_len=71)
     assert flash_attention_cuda.launches == before
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("q_offset,window", [(60, 0), (60, 17)])
+def test_flash_attention_mma_kernel_q_offset_and_window_continuation(cuda_device, q_offset,
+                                                                     window):
+    """The prefill continuation of the float32 test above at bfloat16, on the
+    tensor-core kernel: S < T, GQA G = 3, with and without a window."""
+    q, k, v = _qkv((2, 40, 100, 6, 2, 64), torch.bfloat16, cuda_device, seed=3)
+    before = flash_attention_cuda.mma_launches
+    got = flash_attention_cuda(q, k, v, q_offset=q_offset, window=window)
+    want = flash_attention_plain(q, k, v, q_offset=q_offset, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.mma_launches == before + 1
+    _close(got, want, ML_DTYPES["bfloat16"][1])
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", [
+    # B, S, T, H, K, hd, causal, window, q_offset
+    (2, 77, 77, 4, 4, 64, True, 0, 0),  # G = 1
+    (3, 50, 50, 9, 3, 64, True, 0, 0),  # G = 3 (smollm-135m's heads)
+    (2, 70, 70, 10, 1, 256, True, 24, 0),  # G = 10, window binds (recurrentgemma-2b's heads)
+    (1, 33, 129, 10, 1, 128, True, 0, 96),  # S != T, continuation
+    (2, 45, 300, 6, 2, 32, False, 0, 0),  # S != T, cross
+    (1, 17, 40, 3, 1, 16, True, 5, 23),  # hd 16, window and offset
+], ids=str)
+def test_flash_attention_mma_kernel_gqa_groups_and_ragged_lengths(cuda_device, case):
+    B, S, T, H, K, hd, causal, window, q_offset = case
+    q, k, v = _qkv(case, torch.bfloat16, cuda_device, seed=5)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention_cuda.mma_launches
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.mma_launches == before + 1
+    _close(got, want, ML_DTYPES["bfloat16"][1])
+
+
+@pytest.mark.needs_cuda
+def test_flash_attention_mma_kernel_empty_and_refusals(cuda_device):
+    q, k, v = _qkv((2, 8, 8, 4, 2, 64), torch.bfloat16, cuda_device)
+    before = (flash_attention_cuda.launches, flash_attention_cuda.mma_launches)
+    out = flash_attention_cuda(q[:, :0], k, v)
+    assert out.shape == (2, 0, 4, 64) and out.dtype == torch.bfloat16
+    assert (flash_attention_cuda.launches, flash_attention_cuda.mma_launches) == before
+    with pytest.raises(ValueError, match="empty key sequence"):
+        flash_attention_cuda(q, k[:, :0], v[:, :0])
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(flat[1:].view(q.shape), k, v)
 
 
 @pytest.mark.needs_cuda
