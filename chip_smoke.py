@@ -9,7 +9,7 @@ Phases (each raises on failure, so any failure exits non-zero):
 1. build every CUDA kernel of the main paths from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), print the card's name and
    power limit and ptxas's registers and spills of the tensor-core
-   flash-attention kernel;
+   flash-attention and SSD-scan kernels;
 2. hold each kernel against its plain torch version on the card, at the
    main paths' shapes and at ragged sizes, and time both with CUDA events:
    the single-instance sweep at 10^6 rows, the fleet-parallel sweep at a
@@ -37,23 +37,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    where its 2048 window binds), the tensor-core kernel timed beside the
    plain version and ``scaled_dot_product_attention`` at both prefill
    shapes, with its bound and achieved TFLOP/s;
-9. the SSD-scan kernel against its plain version (the reference kernel
-   tests' four cases, final state included, and mamba2-130m's prefill
-   shape), timed beside the plain version;
+9. the SSD-scan kernels against their plain version (the reference kernel
+   tests' four cases at float32, through the CUDA-core kernel, and at
+   bfloat16, through the tensor-core kernel; chunk 48 and mamba2-130m's
+   prefill shape at bfloat16), the tensor-core kernel timed beside the
+   plain version at mamba2-130m's shape and required faster;
 9b. the RG-LRU-scan kernel against its plain version (the reference kernel
-   tests' four cases at float32 and bfloat16, final state included, and
-   recurrentgemma-2b's prefill shape), timed beside the plain version;
+   tests' four cases at float32 and bfloat16, and recurrentgemma-2b's
+   prefill shape), timed beside the plain version.  In 9 and 9b, y is
+   held at atol = rtol and the final state at atol alone, as the reference
+   kernel tests hold them;
 10. ``ServeEngine.generate`` at the full published widths of smollm-135m
     (30 layers), mamba2-130m (24 layers) and recurrentgemma-2b (26 layers)
     in bfloat16 with seeded random weights: 8 prompts of 1024 tokens, 32
     greedy tokens each; one kernel launch a layer in the prefill, by the
     layer's kind (30 flash-attention; 24 SSD-scan; 18 RG-LRU-scan and 8
-    flash-attention, every one on the tensor-core kernel) and no other
-    launch; prefill ms, decode ms a token, tokens/s and the device split;
+    flash-attention; every flash-attention and SSD-scan launch on its
+    tensor-core kernel) and no other launch; the prefill's last logits
+    through the kernels beside those through their plain versions; prefill
+    ms, decode ms a token, tokens/s and the device split;
 11. the three models at full width and depth in float32 on the card and on
     the CPU (the plain path) with the same weights: 2 prompts of 128 tokens
     and 4 decode steps fed the same tokens, logits compared, the card's
-    float32 prefill on the CUDA-core flash kernel (the CPU holds
+    float32 prefill on the CUDA-core flash and SSD kernels (the CPU holds
     recurrentgemma-2b's 13.4 GB of float32 weights once).
 
 Float32 matrix products run in full float32 on the card
@@ -131,6 +137,7 @@ SSD_CASES = (  # B, S, nh, hp, ng, ds, chunk
     (2, 128, 4, 16, 1, 32, 32), (1, 256, 8, 64, 2, 64, 64),
     (2, 64, 4, 32, 4, 16, 16), (1, 128, 2, 8, 1, 8, 128),
 )
+SSD_EXTRA = ((1, 96, 2, 8, 1, 8, 48),)  # chunk 48: ops.ssd_scan's chunk 64 at S = 96
 RGLRU_CASES = ((2, 128, 64), (1, 100, 200), (2, 64, 256), (1, 32, 16))  # B, S, W
 ML_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # The serving path's kernel shapes: 8 prompts of 1024 tokens through
@@ -291,20 +298,30 @@ def phase_build() -> dict:
     print(f"[build] {sources} in {secs:.2f} s -> {_build.build_dir()}", flush=True)
     ptxas = _ptxas_summary(_build.build_log("flash_attention_mma"), "flash_attention_kernel_mma")
     print("[build] flash_attention_mma ptxas: " + json.dumps(ptxas), flush=True)
-    return {"sources": sources, "seconds": secs, "flash_attention_mma_ptxas": ptxas}
+    ssd_log = _build.build_log("ssd_scan_mma")
+    ssd_ptxas = {name: _ptxas_summary(ssd_log, name, "hp")
+                 for name in ("ssd_chunk_kernel", "ssd_score_kernel", "ssd_state_kernel",
+                              "ssd_out_kernel")}
+    print("[build] ssd_scan_mma ptxas: " + json.dumps(ssd_ptxas), flush=True)
+    return {"sources": sources, "seconds": secs, "flash_attention_mma_ptxas": ptxas,
+            "ssd_scan_mma_ptxas": ssd_ptxas}
 
 
-def _ptxas_summary(log: str, kernel: str) -> dict:
-    """Registers and spill bytes of each instance of ``kernel``, keyed by its
-    integer template argument (the head dim), from nvcc's ``-Xptxas=-v``
-    report."""
+def _ptxas_summary(log: str, kernel: str, key: str = "hd") -> dict:
+    """Registers and spill bytes of each instance of ``kernel``, keyed by
+    ``key`` and its integer template argument (a head width; ``kernel``
+    alone when it has none), from nvcc's ``-Xptxas=-v`` report."""
     out: dict = {}
     cur = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             args = line.split(kernel)[1] if kernel in line else None
-            cur = None if args is None else out.setdefault(
-                "hd" + args.split("ILi")[1].split("E")[0], {})
+            if args is None:
+                cur = None
+            elif args.startswith("ILi"):
+                cur = out.setdefault(key + args.split("ILi")[1].split("E")[0], {})
+            else:
+                cur = out.setdefault(kernel, {})
         elif cur is not None and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
             cur.update(spill_store_bytes=nums[1], spill_load_bytes=nums[2])
@@ -590,8 +607,8 @@ def phase_options(engine: str) -> None:
 def _counted(run):
     """Run ``run()`` with every kernel's launch count set to 0 just before
     it; return its result and the counts read just after
-    (``flash_attention_mma``: the flash launches on the tensor-core kernel,
-    a part of ``flash_attention``'s)."""
+    (``flash_attention_mma``, ``ssd_scan_mma``: the launches on the
+    tensor-core kernels, a part of ``flash_attention``'s and ``ssd_scan``'s)."""
     from repro_torch.kernels.placement_step import placement_sweep_batch_cuda, placement_sweep_cuda
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -605,9 +622,11 @@ def _counted(run):
     for fn in kernels.values():
         fn.launches = 0
     flash_attention_cuda.mma_launches = 0
+    ssd_scan_cuda.mma_launches = 0
     out = run()
     counts = {name: fn.launches for name, fn in kernels.items()}
-    return out, {**counts, "flash_attention_mma": flash_attention_cuda.mma_launches}
+    return out, {**counts, "flash_attention_mma": flash_attention_cuda.mma_launches,
+                 "ssd_scan_mma": ssd_scan_cuda.mma_launches}
 
 
 def _check_many_launches(what: str, launches: dict) -> None:
@@ -706,15 +725,31 @@ def _ml_bound(n_ops: float, n_bytes: int, ops_per_s: float = BF16_OPS_PER_S) -> 
             "ops": n_ops, "bytes": n_bytes}
 
 
-def _err(got, want, tol: float, what: str) -> float:
-    """Max |got - want|; raise where it passes atol = rtol = tol."""
+def _err(got, want, tol: float, what: str, rtol: float | None = None) -> float:
+    """Max |got - want|; raise where it passes atol = tol and rtol (= tol
+    unless given; the scans' final states pass ``rtol=0``, atol alone, as
+    the reference kernel tests hold them)."""
     import torch
 
+    rtol = tol if rtol is None else rtol
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    if not bool(torch.isfinite(g).all()) or bool((diff > tol + tol * w.abs()).any()):
-        raise AssertionError(f"{what}: max abs err {float(diff.max())} over tolerance {tol}")
+    if not bool(torch.isfinite(g).all()) or bool((diff > tol + rtol * w.abs()).any()):
+        raise AssertionError(f"{what}: max abs err {float(diff.max())} over tolerance {tol} "
+                             f"(rtol {rtol})")
     return float(diff.max())
+
+
+def _scan_errs(got, want, tol: float, what: str) -> dict:
+    """y at atol = rtol = tol, the final state at atol alone."""
+    return {"y": _err(got[0], want[0], tol, f"{what}: y"),
+            "state": _err(got[1], want[1], tol, f"{what}: state", rtol=0.0)}
+
+
+def _max_errs(errs: dict, dtype: str) -> str:
+    """'y <max>, state <max>' over the cases of one dtype."""
+    picked = [e for c, e in errs.items() if c.endswith(dtype)]
+    return ", ".join(f"{k} {max(e[k] for e in picked):.3g}" for k in ("y", "state"))
 
 
 def _attn_inputs(case, dtype, device, seed):
@@ -823,35 +858,43 @@ def _ssd_inputs(case, dtype, device, seed):
 
 
 def phase_ssd_vs_plain(device) -> dict:
-    """ssd_scan: kernel vs plain version (y and the final state) on the card
-    at the reference cases and mamba2-130m's prefill shape; timed there.
+    """ssd_scan: kernel vs plain version on the card, y at atol = rtol and
+    the final state at atol alone: the reference cases at float32 (the
+    CUDA-core kernel) and bfloat16 (the tensor-core kernel), chunk 48 and
+    mamba2-130m's prefill shape at bfloat16.  The tensor-core kernel is
+    timed at mamba2-130m's shape beside the plain version and must beat it.
     No single PyTorch call computes the scan, so there is no library time."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
+    def check(case, name, seed):
+        args = _ssd_inputs(case, getattr(torch, name), device, seed)
+        mma_before = ssd_scan_cuda.mma_launches
+        got = ssd_scan_cuda(*args, chunk=case[6], return_state=True)
+        want = ssd_scan_plain(*args, chunk=case[6], return_state=True)
+        torch.cuda.synchronize()
+        mma = ssd_scan_cuda.mma_launches - mma_before
+        if mma != (name == "bfloat16"):
+            raise AssertionError(f"ssd_scan {case} {name}: {mma} tensor-core launches; want "
+                                 f"bfloat16 on the tensor-core kernel, float32 off it")
+        return args, _scan_errs(got, want, ML_TOL[name], f"ssd_scan {case} {name}")
+
     errs = {}
-    for i, case in enumerate(SSD_CASES):
-        for name, tol in ML_TOL.items():
-            args = _ssd_inputs(case, getattr(torch, name), device, i)
-            got = ssd_scan_cuda(*args, chunk=case[6], return_state=True)
-            want = ssd_scan_plain(*args, chunk=case[6], return_state=True)
-            torch.cuda.synchronize()
-            errs[f"{case} {name}"] = max(
-                _err(got[0], want[0], tol, f"ssd_scan {case} {name}: y"),
-                _err(got[1], want[1], tol, f"ssd_scan {case} {name}: state"))
-    print(f"[kernel] ssd_scan: {len(errs)} reference cases within tolerance (y and state), max "
-          f"abs err f32 {max(e for c, e in errs.items() if c.endswith('float32')):.3g}, "
-          f"bf16 {max(e for c, e in errs.items() if c.endswith('bfloat16')):.3g}", flush=True)
+    for i, case in enumerate((*SSD_CASES, *SSD_EXTRA)):
+        for name in ML_TOL if case in SSD_CASES else ("bfloat16",):
+            errs[f"{case} {name}"] = check(case, name, i)[1]
+    print(f"[kernel] ssd_scan: {len(errs)} cases within tolerance (the reference's at float32 "
+          f"and bfloat16, and chunk 48; y at atol = rtol, state at atol alone), max abs err "
+          f"f32 {_max_errs(errs, 'float32')}; bf16 {_max_errs(errs, 'bfloat16')}", flush=True)
 
     B, S, nh, hp, ng, ds, chunk = MAMBA_SSD
-    args = _ssd_inputs(MAMBA_SSD, torch.bfloat16, device, 98)
-    got = ssd_scan_cuda(*args, chunk=chunk, return_state=True)
-    want = ssd_scan_plain(*args, chunk=chunk, return_state=True)
-    err = max(_err(got[0], want[0], ML_TOL["bfloat16"], "ssd_scan mamba2-130m shape: y"),
-              _err(got[1], want[1], ML_TOL["bfloat16"], "ssd_scan mamba2-130m shape: state"))
+    args, err = check(MAMBA_SSD, "bfloat16", 98)
     ms = _events_ms(lambda: ssd_scan_cuda(*args, chunk=chunk, return_state=True), ML_REPS)
     plain_ms = _events_ms(lambda: ssd_scan_plain(*args, chunk=chunk, return_state=True), ML_REPS)
+    if ms >= plain_ms:
+        raise AssertionError(f"ssd_scan (tensor cores) at mamba2-130m's shape: {ms} ms, not "
+                             f"faster than the plain version's {plain_ms} ms")
     # a chunk of L per head: L(L+1)/2 (s <= t) pairs of a ds dot and an hp
     # axpy, then the inter-chunk term and the state update, 2 ds hp a position each
     n_heads_chunks = B * nh * (S // chunk)
@@ -860,10 +903,16 @@ def phase_ssd_vs_plain(device) -> dict:
     n_bytes = 2 * (2 * B * S * nh * hp + 2 * B * S * ng * ds) + 4 * B * S * nh + 8 * nh \
         + 4 * B * nh * ds * hp
     rec = {"shape": dict(zip(("B", "S", "nh", "hp", "ng", "ds", "chunk"), MAMBA_SSD, strict=True)),
-           "dtype": "bfloat16", "max_abs_err": err, "case_errs": errs, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, **_ml_bound(n_ops, n_bytes)}
+           "dtype": "bfloat16", "max_abs_err": max(err.values()), "max_abs_err_y": err["y"],
+           "max_abs_err_state": err["state"], "case_errs": errs, "ms": ms,
+           "plain_ms": plain_ms, "plain_over_kernel": plain_ms / ms, "library_ms": None,
+           **_ml_bound(n_ops, n_bytes)}
     print("[kernel] " + json.dumps({"ssd_scan_timing": {
         k: v for k, v in rec.items() if k != "case_errs"}}), flush=True)
+    print(f"[kernel] ssd_scan (tensor cores) at mamba2-130m's prefill: {ms:.4f} ms; bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); plain {plain_ms:.4f} ms "
+          f"({rec['plain_over_kernel']:.1f}x the kernel's time); max abs err y {err['y']:.3g}, "
+          f"state {err['state']:.3g}", flush=True)
     return rec
 
 
@@ -898,12 +947,10 @@ def phase_rglru_vs_plain(device) -> dict:
             got = rglru_scan_cuda(*args, return_state=True)
             want = rglru_scan_plain(*args, return_state=True)
             torch.cuda.synchronize()
-            errs[f"{case} {name}"] = max(
-                _err(got[0], want[0], tol, f"rglru_scan {case} {name}: y"),
-                _err(got[1], want[1], tol, f"rglru_scan {case} {name}: state"))
-    print(f"[kernel] rglru_scan: {len(errs)} reference cases within tolerance (y and state), "
-          f"max abs err f32 {max(e for c, e in errs.items() if c.endswith('float32')):.3g}, "
-          f"bf16 {max(e for c, e in errs.items() if c.endswith('bfloat16')):.3g}", flush=True)
+            errs[f"{case} {name}"] = _scan_errs(got, want, tol, f"rglru_scan {case} {name}")
+    print(f"[kernel] rglru_scan: {len(errs)} reference cases within tolerance (y at atol = "
+          f"rtol, state at atol alone), max abs err f32 {_max_errs(errs, 'float32')}; "
+          f"bf16 {_max_errs(errs, 'bfloat16')}", flush=True)
 
     B, S, W = RGEMMA_RGLRU
     errs_prefill = {}
@@ -911,16 +958,18 @@ def phase_rglru_vs_plain(device) -> dict:
         args = _rglru_inputs(RGEMMA_RGLRU, getattr(torch, name), device, 95)
         got = rglru_scan_cuda(*args, return_state=True)
         want = rglru_scan_plain(*args, return_state=True)
-        errs_prefill[name] = max(
-            _err(got[0], want[0], tol, f"rglru_scan recurrentgemma-2b shape {name}: y"),
-            _err(got[1], want[1], tol, f"rglru_scan recurrentgemma-2b shape {name}: state"))
+        errs_prefill[name] = _scan_errs(got, want, tol,
+                                        f"rglru_scan recurrentgemma-2b shape {name}")
     args = _rglru_inputs(RGEMMA_RGLRU, torch.bfloat16, device, 95)  # the timed inputs
     ms = _events_ms(lambda: rglru_scan_cuda(*args, return_state=True), ML_REPS)
     plain_ms = _events_ms(lambda: rglru_scan_plain(*args, return_state=True), ML_REPS)
     # x, r, i read and y written once in bf16; log_lambda f32; the f32 state
     n_bytes = 2 * 4 * B * S * W + 4 * W + 4 * B * W
     rec = {"shape": dict(zip(("B", "S", "W"), RGEMMA_RGLRU, strict=True)), "dtype": "bfloat16",
-           "max_abs_err": errs_prefill["bfloat16"], "max_abs_err_float32": errs_prefill["float32"],
+           "max_abs_err": max(errs_prefill["bfloat16"].values()),
+           "max_abs_err_y": errs_prefill["bfloat16"]["y"],
+           "max_abs_err_state": errs_prefill["bfloat16"]["state"],
+           "max_abs_err_float32": errs_prefill["float32"],
            "case_errs": errs, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
            **_ml_bound(OPS_PER_RGLRU_STEP * B * S * W, n_bytes, FP32_OPS_PER_S)}
     print("[kernel] " + json.dumps({"rglru_scan_timing": {
@@ -930,6 +979,44 @@ def phase_rglru_vs_plain(device) -> dict:
 
 def _cpu_tree(tree: dict) -> dict:
     return {k: _cpu_tree(v) if isinstance(v, dict) else v.detach().cpu() for k, v in tree.items()}
+
+
+# The kernels' symbols, as the profiler names them, by wrapper: the bf16
+# serving path's SSD scan runs the tensor-core kernel's four passes.
+KERNEL_SYMBOLS = {
+    "flash_attention": ("flash_attention_kernel",),
+    "ssd_scan": ("ssd_chunk_kernel", "ssd_score_kernel", "ssd_state_kernel", "ssd_out_kernel"),
+    "rglru_scan": ("rglru_scan_kernel",),
+}
+
+
+def _prefill_vs_plain(model, batch) -> dict:
+    """The prefill's last logits through the kernels and, on the same card,
+    through their plain versions: max |difference| beside max |logit|, the
+    rows whose argmax agrees, and the plain logits' top-2 margin on the rows
+    that differ.  bf16 rounds at other places in the two, so a near tie can
+    flip a greedy token; phase 11 holds the logits strictly, at float32."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    got, _ = model.prefill(batch)
+    names = ("flash_attention", "ssd_scan", "rglru_scan")
+    saved = {n: getattr(ops, f"{n}_cuda") for n in names}
+    try:
+        for n in names:
+            setattr(ops, f"{n}_cuda", getattr(ops, f"{n}_plain"))
+        want, _ = model.prefill(batch)
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, f"{n}_cuda", fn)
+    g, w = got.float(), want.float()
+    agree = g.argmax(-1) == w.argmax(-1)
+    top2 = torch.topk(w, 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1])[~agree]
+    return {"max_abs_diff": float((g - w).abs().max()), "max_abs_logit": float(w.abs().max()),
+            "argmax_agree_rows": int(agree.sum()), "rows": int(agree.numel()),
+            "plain_top2_margin_where_differs": margin.tolist()}
 
 
 def _expected_launches(cfg) -> dict:
@@ -969,13 +1056,14 @@ def phase_serve(name: str, device) -> dict:
         return out, time.perf_counter() - t0
 
     (out, gen_s), counts = _counted(run)
-    if {k: n for k, n in counts.items() if n and k != "flash_attention_mma"} != want:
+    if {k: n for k, n in counts.items() if n and not k.endswith("_mma")} != want:
         raise AssertionError(f"serve {name}: launches {counts}; want {want} (one a layer of "
                              f"its kind, in the prefill) and no other")
-    if counts["flash_attention_mma"] != counts["flash_attention"]:
-        raise AssertionError(f"serve {name}: {counts['flash_attention_mma']} of "
-                             f"{counts['flash_attention']} flash launches on the tensor-core "
-                             f"kernel; want all of them (bfloat16)")
+    for kernel in ("flash_attention", "ssd_scan"):
+        if counts[f"{kernel}_mma"] != counts[kernel]:
+            raise AssertionError(f"serve {name}: {counts[f'{kernel}_mma']} of {counts[kernel]} "
+                                 f"{kernel} launches on the tensor-core kernel; want all of "
+                                 f"them (bfloat16)")
     if tuple(out.shape) != (B, new) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
         raise AssertionError(f"serve {name}: tokens {tuple(out.shape)} out of range")
 
@@ -1004,8 +1092,9 @@ def phase_serve(name: str, device) -> dict:
         "generate_s": gen_s, "tokens_per_s": B * new / gen_s,
         "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
         "launches": counts, "first_row": out[0, :8].tolist(),
+        "prefill_vs_plain": _prefill_vs_plain(model, batch),
         "device_us": _device_split(lambda: (engine.generate(batch, 8), torch.cuda.synchronize()),
-                                   kernels=tuple(f"{k}_kernel" for k in want)),
+                                   kernels=tuple(k for n in want for k in KERNEL_SYMBOLS[n])),
     }
     print("[serve] " + json.dumps(rec), flush=True)
     del model, engine, state
@@ -1032,9 +1121,13 @@ def phase_serve_check(name: str, device) -> dict:
     tok = torch.from_numpy(
         np.random.default_rng(21).integers(0, cfg.vocab, (B, S)).astype(np.int32))
     (g_last, g_state), counts = _counted(lambda: gpu.prefill({"tokens": tok.to(device)}))
-    if counts["flash_attention_mma"] or counts["flash_attention"] != cfg.layer_kinds().count("attn"):
+    kinds = cfg.layer_kinds()
+    if (counts["flash_attention_mma"] or counts["ssd_scan_mma"]
+            or counts["flash_attention"] != kinds.count("attn")
+            or counts["ssd_scan"] != kinds.count("ssm")):
         raise AssertionError(f"serve check {name}: float32 prefill launches {counts}; want one "
-                             f"CUDA-core flash launch an attention layer, none on tensor cores")
+                             f"CUDA-core flash or SSD launch a layer of its kind, none on "
+                             f"tensor cores")
     c_last, c_state = cpu.prefill({"tokens": tok})
     g_state = _pad_cache_to(g_state, cfg.family, S + steps)
     c_state = _pad_cache_to(c_state, cfg.family, S + steps)
@@ -1109,7 +1202,8 @@ def main() -> int:
     def served(kernel: str) -> int:  # launches over every served generate
         return sum(r["launches"][kernel] for r in serve.values())
 
-    sources = {"flash_attention": "flash_attention_mma"}  # the bf16 main path's kernel
+    # the bf16 main path's kernels
+    sources = {"flash_attention": "flash_attention_mma", "ssd_scan": "ssd_scan_mma"}
     kernels = []
     for name, replaces, rec, n in (
         ("placement_sweep", "src/repro/kernels/placement_step.py:136", timing,
@@ -1118,7 +1212,7 @@ def main() -> int:
          sum(many_launches.values())),
         ("flash_attention", "src/repro/kernels/flash_attention.py:121", timing_flash,
          served("flash_attention_mma")),
-        ("ssd_scan", "src/repro/kernels/ssd_scan.py:103", timing_ssd, served("ssd_scan")),
+        ("ssd_scan", "src/repro/kernels/ssd_scan.py:103", timing_ssd, served("ssd_scan_mma")),
         ("rglru_scan", "src/repro/kernels/rglru_scan.py:75", timing_rglru, served("rglru_scan")),
     ):
         kernels.append({

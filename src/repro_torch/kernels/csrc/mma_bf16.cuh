@@ -39,6 +39,13 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 4 bytes (one float) from global to shared memory, asynchronously, with
+// the same zero fill when `valid` is false.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // Wait until at most N of this thread's committed groups are in flight.
@@ -74,6 +81,18 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two floats as two bf16 pairs whose sum holds them to about 16 bits:
+// `big` packs each float rounded to bf16 (as pack_bf16), `small` packs
+// what that rounding left out, rounded in turn.  A product taken once with
+// each carries a float32 operand into an mma.sync of bf16 operands.
+__device__ __forceinline__ void pack_bf16_split(float lo, float hi, uint32_t& big,
+                                                uint32_t& small) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  const float2 r = __bfloat1622float2(v);
+  big = *reinterpret_cast<const uint32_t*>(&v);
+  small = pack_bf16(lo - r.x, hi - r.y);
 }
 
 }  // namespace mma_bf16

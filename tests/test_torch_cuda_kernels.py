@@ -10,7 +10,8 @@ The placement sweeps' outputs are compared exactly: kernel and plain
 version run the same float64 operations in the same order.  The attention,
 SSD and RG-LRU kernels sum in another order than their plain versions, so
 they are held to the reference kernel tests' tolerances: 2e-5 at float32,
-2e-2 at bfloat16 (where the RG-LRU state also differs by the plain
+2e-2 at bfloat16, outputs at atol = rtol and the scans' final states at
+atol alone (at bfloat16 the RG-LRU state also differs by the plain
 version's rounding of it to bfloat16).
 """
 
@@ -245,8 +246,11 @@ SSD_CASES = [
 ML_DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 
 
-def _close(got, want, tol):
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+def _close(got, want, tol, rtol=None):
+    """Within atol = tol and rtol (= tol unless given); scan final states
+    pass ``rtol=0``, atol alone, as the reference kernel tests hold them."""
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol if rtol is None else rtol)
 
 
 def _qkv(case, dtype, device, seed=0):
@@ -387,16 +391,70 @@ def _ssd(case, dtype, device, seed=0):
 @pytest.mark.parametrize("case", SSD_CASES, ids=str)
 @pytest.mark.parametrize("name", ML_DTYPES)
 def test_ssd_scan_kernel_matches_plain(cuda_device, case, name):
+    """bfloat16 runs the tensor-core kernel, float32 the CUDA-core one."""
     dtype, tol = ML_DTYPES[name]
     args = _ssd(case, dtype, cuda_device)
     before = ssd_scan_cuda.launches
+    before_mma = ssd_scan_cuda.mma_launches
     got_y, got_st = ops.ssd_scan(*args, chunk=case[6], return_state=True)  # the kernel
     want_y, want_st = ssd_scan_plain(*args, chunk=case[6], return_state=True)
     torch.cuda.synchronize()
     assert ssd_scan_cuda.launches == before + 1
+    assert ssd_scan_cuda.mma_launches == before_mma + (dtype == torch.bfloat16)
     assert got_y.dtype == dtype and got_st.dtype == torch.float32
     _close(got_y, want_y, tol)
-    _close(got_st, want_st, tol)
+    _close(got_st, want_st, tol, rtol=0)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case,chunk,runs_at", [
+    ((8, 1024, 24, 64, 1, 128), 256, 256),  # mamba2-130m's prefill
+    ((1, 96, 2, 8, 1, 8), 64, 48),  # ops.ssd_scan shrinks chunk 64 to 48 at S = 96
+    ((2, 200, 4, 128, 2, 200), 100, 100),  # hp 128, ds in 4 slices (the last partial), 2 tiles
+    ((1, 70, 3, 12, 1, 20), 35, 35),  # hp and ds not multiples of 8: 2-byte staging
+    ((1, 64, 2, 16, 1, 0), 32, 32),  # no state: y = D x
+], ids=str)
+def test_ssd_scan_mma_kernel_shapes_and_chunk_shrink(cuda_device, case, chunk, runs_at):
+    args = _ssd(case, torch.bfloat16, cuda_device, seed=7)
+    before = ssd_scan_cuda.mma_launches
+    got_y, got_st = ops.ssd_scan(*args, chunk=chunk, return_state=True)
+    want_y, want_st = ssd_scan_plain(*args, chunk=runs_at, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.mma_launches == before + 1
+    _close(got_y, want_y, 2e-2)
+    _close(got_st, want_st, 2e-2, rtol=0)
+
+
+@pytest.mark.needs_cuda
+def test_ssd_scan_mma_kernel_unaligned_inputs(cuda_device):
+    """x, B and C off 16-byte alignment take the 2-byte staging."""
+    x, dt, A, Bm, Cm, D = _ssd((1, 64, 2, 16, 1, 16), torch.bfloat16, cuda_device, seed=8)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    xs, bs, cs = shifted(x), shifted(Bm), shifted(Cm)
+    assert xs.data_ptr() % 16 and bs.data_ptr() % 16
+    got_y, got_st = ssd_scan_cuda(xs, dt, A, bs, cs, D, chunk=32, return_state=True)
+    want_y, want_st = ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=32, return_state=True)
+    torch.cuda.synchronize()
+    _close(got_y, want_y, 2e-2)
+    _close(got_st, want_st, 2e-2, rtol=0)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("name", ML_DTYPES)
+def test_ssd_scan_kernel_empty_launches_nothing(cuda_device, name):
+    x, dt, A, Bm, Cm, D = _ssd((2, 32, 2, 8, 1, 8), ML_DTYPES[name][0], cuda_device)
+    before = (ssd_scan_cuda.launches, ssd_scan_cuda.mma_launches)
+    for cut in (lambda t: t[:0], lambda t: t[:, :0]):  # an empty batch, an empty sequence
+        y, st = ssd_scan_cuda(cut(x), cut(dt), A, cut(Bm), cut(Cm), D, chunk=16,
+                              return_state=True)
+        assert y.numel() == 0 and not st.any()
+    assert (ssd_scan_cuda.launches, ssd_scan_cuda.mma_launches) == before
 
 
 @pytest.mark.needs_cuda
@@ -441,7 +499,7 @@ def test_rglru_scan_kernel_matches_plain(cuda_device, case, name):
     assert got_y.dtype == dtype and got_st.dtype == torch.float32
     assert got_st.shape == (case[0], case[2])
     _close(got_y, want_y, tol)
-    _close(got_st, want_st, tol)
+    _close(got_st, want_st, tol, rtol=0)
 
 
 @pytest.mark.needs_cuda

@@ -66,7 +66,8 @@ def test_rglru_plain_matches_reference(case, name, against):
     assert got_st.dtype == torch.float32 and got_st.shape == (B, W)
     tol = TOL[name]
     np.testing.assert_allclose(_f32(got_y), _f32(want_y), atol=tol, rtol=tol)
-    np.testing.assert_allclose(_f32(got_st), _f32(want_st), atol=tol, rtol=tol)
+    # the final state at atol alone, as the reference kernel tests hold it
+    np.testing.assert_allclose(_f32(got_st), _f32(want_st), atol=tol)
 
 
 def test_rglru_plain_state_is_the_last_output_rounded():
@@ -85,7 +86,7 @@ def test_rglru_initial_state_matches_reference():
     got_y, got_st = tref.rglru_ref(*targs, initial_state=torch.from_numpy(st0),
                                    return_state=True)
     np.testing.assert_allclose(_f32(got_y), _f32(want_y), atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(_f32(got_st), _f32(want_st), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(_f32(got_st), _f32(want_st), atol=2e-5)
 
 
 def test_rglru_decode_steps_match_full_scan_and_reference():

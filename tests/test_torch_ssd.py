@@ -65,7 +65,8 @@ def test_ssd_plain_matches_pallas_interpret(case, name):
     assert got_st.shape == (B, nh, ds, hp)
     tol = 2e-2 if name == "bfloat16" else 2e-5
     np.testing.assert_allclose(_f32(got_y), _f32(want_y), atol=tol, rtol=tol)
-    np.testing.assert_allclose(_f32(got_st), _f32(want_st), atol=tol, rtol=tol)
+    # the final state at atol alone, as the reference kernel tests hold it
+    np.testing.assert_allclose(_f32(got_st), _f32(want_st), atol=tol)
 
 
 @pytest.mark.parametrize("case", SSD_CASES, ids=str)
@@ -92,7 +93,7 @@ def test_ssd_chunked_ref_matches_reference_with_initial_state(case):
     got_y, got_st = tref.ssd_chunked_ref(*targs, chunk=chunk, initial_state=torch.from_numpy(st0),
                                          return_state=True)
     np.testing.assert_allclose(_f32(got_y), _f32(want_y), atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(_f32(got_st), _f32(want_st), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(_f32(got_st), _f32(want_st), atol=2e-5)
 
 
 def test_ssd_decode_steps_match_full_scan_and_reference():
