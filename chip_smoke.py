@@ -42,10 +42,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    bfloat16, through the tensor-core kernel; chunk 48 and mamba2-130m's
    prefill shape at bfloat16), the tensor-core kernel timed beside the
    plain version at mamba2-130m's shape and required faster;
-9b. the RG-LRU-scan kernel against its plain version (the reference kernel
-   tests' four cases at float32 and bfloat16, and recurrentgemma-2b's
-   prefill shape), timed beside the plain version.  In 9 and 9b, y is
-   held at atol = rtol and the final state at atol alone, as the reference
+9b. the RG-LRU-scan kernel (a time-chunked scan) against its plain version
+   (the reference kernel tests' four cases at float32 and bfloat16, and
+   recurrentgemma-2b's prefill shape with the reference's decay and with a
+   slow decay, a near 1, whose state carries across many chunks), timed
+   beside the plain version at that shape and required faster, with
+   ptxas's registers and spills (none allowed).  In 9 and 9b, y is held
+   at atol = rtol and the final state at atol alone, as the reference
    kernel tests hold them;
 10. ``ServeEngine.generate`` at the full published widths of smollm-135m
     (30 layers), mamba2-130m (24 layers) and recurrentgemma-2b (26 layers)
@@ -121,9 +124,11 @@ DEEP_RANK = 425399
 # recurrence runs.
 BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
-# float32 operations an RG-LRU step, counted from the kernel: two sigmoids
-# (negate, exp, add, divide: 4 each), a = exp(-c lam sr) (multiply, exp),
-# a * a, 1 - that, max, sqrt, sigmoid(i) * x, the gated product, a * h + g.
+# float32 operations an RG-LRU step needs: two sigmoids (negate, exp, add,
+# divide: 4 each), a = exp(-c lam sr) (multiply, exp), a * a, 1 - that,
+# max, sqrt, sigmoid(i) * x, the gated product, a * h + g (2).  The chunked
+# kernel's decay product, chunk fold and rerun of a * h + g are its own
+# overhead and are not counted.
 OPS_PER_RGLRU_STEP = 18
 ML_REPS = 10
 # The reference kernel tests' cases (tests/test_kernels.py), with their
@@ -307,10 +312,37 @@ def phase_build() -> dict:
             "ssd_scan_mma_ptxas": ssd_ptxas}
 
 
-def _ptxas_summary(log: str, kernel: str, key: str = "hd") -> dict:
+def _template_args(mangled: str) -> str:
+    """A mangled template argument list as text: 'I13__nv_bfloat16fLi8ELb1EE'
+    -> '__nv_bfloat16,float,8,1' (named types, builtin letters, literals; a
+    substitution 'S..._' repeats the last named type)."""
+    out, named, i = [], "?", 1
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i] == "L":  # a literal: L <type letter> <value> E
+            j = mangled.index("E", i)
+            out.append(mangled[i + 2:j])
+            i = j + 1
+        elif mangled[i] == "S":
+            out.append(named)
+            i = mangled.index("_", i) + 1
+        elif mangled[i].isdigit():  # a named type: <length> <name>
+            j = i
+            while mangled[j].isdigit():
+                j += 1
+            named = mangled[j:j + int(mangled[i:j])]
+            out.append(named)
+            i = j + len(named)
+        else:
+            out.append({"f": "float", "d": "double", "i": "int"}.get(mangled[i], mangled[i]))
+            i += 1
+    return ",".join(out)
+
+
+def _ptxas_summary(log: str, kernel: str, key: str | None = "hd") -> dict:
     """Registers and spill bytes of each instance of ``kernel``, keyed by
     ``key`` and its integer template argument (a head width; ``kernel``
-    alone when it has none), from nvcc's ``-Xptxas=-v`` report."""
+    alone when it has none), or with ``key=None`` by all its template
+    arguments, from nvcc's ``-Xptxas=-v`` report."""
     out: dict = {}
     cur = None
     for line in log.splitlines():
@@ -318,6 +350,8 @@ def _ptxas_summary(log: str, kernel: str, key: str = "hd") -> dict:
             args = line.split(kernel)[1] if kernel in line else None
             if args is None:
                 cur = None
+            elif key is None and args.startswith("I"):
+                cur = out.setdefault(_template_args(args), {})
             elif args.startswith("ILi"):
                 cur = out.setdefault(key + args.split("ILi")[1].split("E")[0], {})
             else:
@@ -916,7 +950,11 @@ def phase_ssd_vs_plain(device) -> dict:
     return rec
 
 
-def _rglru_inputs(case, dtype, device, seed):
+def _rglru_inputs(case, dtype, device, seed, slow: bool = False):
+    """x, r, i standard normal in ``dtype``, log_lambda float32: standard
+    normal, or with ``slow`` uniform in [-8, -4], where a = exp(-8
+    softplus(lam) sigmoid(r)) lies in about [0.87, 1) and the state carries
+    across many chunks."""
     import torch
 
     B, S, W = case
@@ -926,19 +964,22 @@ def _rglru_inputs(case, dtype, device, seed):
         return torch.tensor(np.asarray(a, np.float32)).to(device, dt)
 
     return (*(on(rng.standard_normal((B, S, W)), dtype) for _ in range(3)),
-            on(rng.standard_normal(W)))
+            on(rng.uniform(-8.0, -4.0, W) if slow else rng.standard_normal(W)))
 
 
 def phase_rglru_vs_plain(device) -> dict:
     """rglru_scan: kernel vs plain version (y and the final state) on the
-    card at the reference cases and recurrentgemma-2b's prefill shape; timed
-    there.  The kernel returns the float32 state, the plain version the
-    state rounded to x's type (the reference oracle's convention): at
-    bfloat16 the two differ by that rounding, inside 2e-2.  No single
-    PyTorch call computes the scan, so there is no library time."""
+    card at the reference cases and recurrentgemma-2b's prefill shape, with
+    the reference's decay and a slow one; timed there, and required faster
+    than the plain version, with no spills in ptxas's report.  The kernel
+    returns the float32 state, the plain version the state rounded to x's
+    type (the reference oracle's convention): at bfloat16 the two differ by
+    that rounding, inside 2e-2.  No single PyTorch call computes the scan,
+    so there is no library time."""
     import torch
 
-    from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_plain
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru_scan import rglru_plan, rglru_scan_cuda, rglru_scan_plain
 
     errs = {}
     for i, case in enumerate(RGLRU_CASES):
@@ -953,27 +994,50 @@ def phase_rglru_vs_plain(device) -> dict:
           f"bf16 {_max_errs(errs, 'bfloat16')}", flush=True)
 
     B, S, W = RGEMMA_RGLRU
-    errs_prefill = {}
+    errs_prefill, errs_slow = {}, {}
     for name, tol in ML_TOL.items():
-        args = _rglru_inputs(RGEMMA_RGLRU, getattr(torch, name), device, 95)
-        got = rglru_scan_cuda(*args, return_state=True)
-        want = rglru_scan_plain(*args, return_state=True)
-        errs_prefill[name] = _scan_errs(got, want, tol,
-                                        f"rglru_scan recurrentgemma-2b shape {name}")
+        for errs_at, slow, seed in ((errs_prefill, False, 95), (errs_slow, True, 94)):
+            args = _rglru_inputs(RGEMMA_RGLRU, getattr(torch, name), device, seed, slow=slow)
+            got = rglru_scan_cuda(*args, return_state=True)
+            want = rglru_scan_plain(*args, return_state=True)
+            errs_at[name] = _scan_errs(got, want, tol, f"rglru_scan recurrentgemma-2b shape "
+                                       f"{name}{' slow decay' if slow else ''}")
+    print(f"[kernel] rglru_scan at recurrentgemma-2b's shape: max abs err bf16 y "
+          f"{errs_prefill['bfloat16']['y']:.3g}, state {errs_prefill['bfloat16']['state']:.3g}; "
+          f"slow decay bf16 y {errs_slow['bfloat16']['y']:.3g}, state "
+          f"{errs_slow['bfloat16']['state']:.3g}; f32 {json.dumps(errs_prefill['float32'])}, "
+          f"slow {json.dumps(errs_slow['float32'])}", flush=True)
+    ptxas = _ptxas_summary(_build.build_log("rglru_scan"), "rglru_chunk_scan_kernel", None)
+    print("[build] rglru_scan ptxas: " + json.dumps(ptxas), flush=True)
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_store_bytes", 0) or v.get("spill_load_bytes", 0)}
+    if spills:
+        raise AssertionError(f"rglru_scan: ptxas reports spills in {spills}")
+    plan = rglru_plan(B, S, W, torch.bfloat16)
     args = _rglru_inputs(RGEMMA_RGLRU, torch.bfloat16, device, 95)  # the timed inputs
     ms = _events_ms(lambda: rglru_scan_cuda(*args, return_state=True), ML_REPS)
     plain_ms = _events_ms(lambda: rglru_scan_plain(*args, return_state=True), ML_REPS)
+    if ms >= plain_ms:
+        raise AssertionError(f"rglru_scan at recurrentgemma-2b's shape: {ms} ms, not faster "
+                             f"than the plain version's {plain_ms} ms")
     # x, r, i read and y written once in bf16; log_lambda f32; the f32 state
     n_bytes = 2 * 4 * B * S * W + 4 * W + 4 * B * W
     rec = {"shape": dict(zip(("B", "S", "W"), RGEMMA_RGLRU, strict=True)), "dtype": "bfloat16",
+           "plan": {k: getattr(plan, k) for k in ("grid", "threads", "tile", "chunk",
+                                                  "n_chunks", "window", "vec")},
            "max_abs_err": max(errs_prefill["bfloat16"].values()),
            "max_abs_err_y": errs_prefill["bfloat16"]["y"],
            "max_abs_err_state": errs_prefill["bfloat16"]["state"],
            "max_abs_err_float32": errs_prefill["float32"],
-           "case_errs": errs, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "slow_decay_errs": errs_slow, "registers": ptxas,
+           "case_errs": errs, "ms": ms, "plain_ms": plain_ms,
+           "plain_over_kernel": plain_ms / ms, "library_ms": None,
            **_ml_bound(OPS_PER_RGLRU_STEP * B * S * W, n_bytes, FP32_OPS_PER_S)}
     print("[kernel] " + json.dumps({"rglru_scan_timing": {
-        k: v for k, v in rec.items() if k != "case_errs"}}), flush=True)
+        k: v for k, v in rec.items() if k not in ("case_errs", "registers")}}), flush=True)
+    print(f"[kernel] rglru_scan (chunked) at recurrentgemma-2b's prefill: {ms:.4f} ms; bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); plain {plain_ms:.4f} ms "
+          f"({rec['plain_over_kernel']:.1f}x the kernel's time)", flush=True)
     return rec
 
 
@@ -986,7 +1050,7 @@ def _cpu_tree(tree: dict) -> dict:
 KERNEL_SYMBOLS = {
     "flash_attention": ("flash_attention_kernel",),
     "ssd_scan": ("ssd_chunk_kernel", "ssd_score_kernel", "ssd_state_kernel", "ssd_out_kernel"),
-    "rglru_scan": ("rglru_scan_kernel",),
+    "rglru_scan": ("rglru_chunk_scan_kernel",),
 }
 
 

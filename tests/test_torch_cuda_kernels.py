@@ -477,12 +477,15 @@ RGLRU_CASES = [(2, 128, 64), (1, 100, 200), (2, 64, 256), (1, 32, 16)]
 RGLRU_PREFILL = (8, 1024, 2560)
 
 
-def _rglru(case, dtype, device, seed=0):
+def _rglru(case, dtype, device, seed=0, slow=False):
+    """x, r, i standard normal in ``dtype``; log_lambda float32, standard
+    normal or (``slow``) uniform in [-8, -4], where a lies near 1 and the
+    state carries across many chunks."""
     B, S, W = case
     rng = np.random.default_rng(seed)
     f = lambda a: torch.tensor(np.asarray(a, np.float32)).to(device)  # noqa: E731
     return (*(f(rng.standard_normal((B, S, W))).to(dtype) for _ in range(3)),
-            f(rng.standard_normal(W)))
+            f(rng.uniform(-8.0, -4.0, W) if slow else rng.standard_normal(W)))
 
 
 @pytest.mark.needs_cuda
@@ -514,6 +517,62 @@ def test_rglru_scan_kernel_layouts_and_lambda_types(cuda_device):
     _close(ops.rglru_scan(xt, r, i, lam), want, 2e-5)
     lam16 = lam.bfloat16()
     _close(rglru_scan_cuda(x, r, i, lam16), rglru_scan_plain(x, r, i, lam16), 2e-5)
+
+
+# The chunked kernel's edges (decay, (B, S, W)): a slow decay at
+# recurrentgemma-2b's width, S = 1, S = 4096, S off the chunk (8) and the
+# window (64), and W 100 (off bf16's 16-byte vector) and 200 (a ragged tile).
+RGLRU_EDGES = [
+    ("slow", (2, 1024, 2560)), ("normal", (2, 1, 2560)), ("slow", (1, 4096, 256)),
+    ("normal", (2, 333, 2560)), ("slow", (2, 200, 100)), ("slow", (1, 77, 200)),
+]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("decay,case", RGLRU_EDGES, ids=[f"{d}-{c}" for d, c in RGLRU_EDGES])
+@pytest.mark.parametrize("name", ML_DTYPES)
+def test_rglru_scan_kernel_chunk_edges(cuda_device, decay, case, name):
+    dtype, tol = ML_DTYPES[name]
+    args = _rglru(case, dtype, cuda_device, seed=2, slow=decay == "slow")
+    got_y, got_st = rglru_scan_cuda(*args, return_state=True)
+    want_y, want_st = rglru_scan_plain(*args, return_state=True)
+    torch.cuda.synchronize()
+    _close(got_y, want_y, tol)
+    _close(got_st, want_st, tol, rtol=0)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("name", ML_DTYPES)
+def test_rglru_scan_kernel_unaligned_inputs(cuda_device, name):
+    """Contiguous views one element into their storage (not 16-byte
+    aligned) are staged element by element, with the same result."""
+    dtype, tol = ML_DTYPES[name]
+    args = _rglru((2, 150, 256), dtype, cuda_device, seed=3, slow=True)
+
+    def odd(t):
+        v = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+        return v.copy_(t)
+
+    x, r, i = (odd(t) for t in args[:3])
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got_y, got_st = rglru_scan_cuda(x, r, i, args[3], return_state=True)
+    want_y, want_st = rglru_scan_plain(*args, return_state=True)
+    torch.cuda.synchronize()
+    _close(got_y, want_y, tol)
+    _close(got_st, want_st, tol, rtol=0)
+
+
+@pytest.mark.needs_cuda
+def test_rglru_scan_kernel_bf16_lambda_at_prefill_width(cuda_device):
+    """bfloat16 x, r, i and log_lambda together, as Model(dtype=bfloat16)
+    hands them to the kernel, at recurrentgemma-2b's width."""
+    x, r, i, lam = _rglru((2, 1024, 2560), torch.bfloat16, cuda_device, seed=4, slow=True)
+    lam16 = lam.bfloat16()
+    got_y, got_st = rglru_scan_cuda(x, r, i, lam16, return_state=True)
+    want_y, want_st = rglru_scan_plain(x, r, i, lam16, return_state=True)
+    torch.cuda.synchronize()
+    _close(got_y, want_y, 2e-2)
+    _close(got_st, want_st, 2e-2, rtol=0)
 
 
 @pytest.mark.needs_cuda
