@@ -9,11 +9,18 @@ Phases (each raises on failure, so any failure exits non-zero):
 1. build every CUDA kernel of the main paths from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), print the card's name and
    power limit and ptxas's registers and spills of the tensor-core
-   flash-attention and SSD-scan kernels;
+   flash-attention and SSD-scan kernels and of both placement sweeps' four
+   forms (staged or direct, repay_init or not; a spill fails the run);
 2. hold each kernel against its plain torch version on the card, at the
    main paths' shapes and at ragged sizes, and time both with CUDA events:
-   the single-instance sweep at 10^6 rows, the fleet-parallel sweep at a
-   full round (64 instances x 4096 rows x 7 tasks, 4 devices);
+   the single-instance sweep at 10^6 rows and at the deep instance's ramp
+   blocks (64 to 65536 rows x 10 tasks, 6 devices), the fleet-parallel
+   sweep at a full round (64 instances x 4096 rows x 7 tasks, 4 devices)
+   and at schedule_many's rounds of 64 x 16, 64 and 512 rows; both sweeps
+   also on an 8-byte-aligned view and on rows of 7000 tasks, kernel 2 on
+   64-instance rounds of mixed live widths at R = 16 and R = 1 and a
+   ragged tail; every comparison exact (``torch.equal``), over five
+   option variants;
 3. the ``schedule()`` path, through ``PADPSFRScheduler(engine="cuda")``:
    the paper's Example 1 (|TSS|=1024 |TFS|=620 rejects=146 rank=4
    power=31.5, T3 split 12:12);
@@ -106,6 +113,15 @@ OPS_PER_STEP = 12
 
 SWEEP_ROWS = 1_000_000
 RAGGED_ROWS = (1, 7, 1025)
+# The main path's launches of the two sweeps: the deep instance's block
+# ramp (rows x 10 tasks on 6 devices) for kernel 1, and schedule_many's
+# rounds of 64 instances (7 tasks, 4 devices) at block_size=16 and on the
+# ramp's first blocks for kernel 2.
+DEEP_BLOCKS = (64, 512, 4096, 32768, 65536)
+DEEP_TASKS = 10
+MANY_ROUNDS = (16, 64, 512)
+# n_t = 7000: rows too wide to stage (the kernels read them directly).
+WIDE_ROWS = (300, 7000, 4)
 # The fleet-parallel round: _MANY_ROUND_ROWS = 2^18 rows at the JAX
 # package's fleet_parallel widths (7 tasks, 4 devices).
 ROUND = dict(B=64, R=4096, n_t=7, n_f=4)
@@ -254,18 +270,22 @@ def random_instances(rng, n):
     return insts
 
 
-def instance_stack(rng, shapes, device):
+def instance_stack(rng, shapes, device, small: bool = False):
     """A packed (B, R, n_t) stack of instances with their own tables, on the
-    card, with its resilience=1 survivor tables: (main args, survivor args)."""
+    card, with its resilience=1 survivor tables: (main args, survivor args).
+    ``small`` scales the per-task costs by 8 / n_t, so rows of thousands of
+    tasks can fit too."""
     import torch
 
     from repro_torch.core.placement_backends import InstanceBatch, survivor_batch_tables
 
     blocks = []
     for rows, n_t, n_f in shapes:
+        scale = min(1.0, 8.0 / n_t) if small else 1.0
         t_slr = rng.uniform(60.0, 140.0, n_f)
-        blocks.append((sweep_block(rng, rows, n_t, t_slr.sum()), rng.uniform(1.0, 5.0, n_t),
-                       t_slr, rng.uniform(0.0, 6.0, n_f)))
+        blocks.append((sweep_block(rng, rows, n_t, t_slr.sum()),
+                       rng.uniform(1.0, 5.0, n_t) * scale, t_slr,
+                       rng.uniform(0.0, 6.0, n_f) * scale))
     batch = InstanceBatch.pack(blocks)
     slr_s, cfg_s, nfe_s = survivor_batch_tables(batch.t_slr, batch.t_cfg, batch.n_f_eff, 1)
 
@@ -308,8 +328,17 @@ def phase_build() -> dict:
                  for name in ("ssd_chunk_kernel", "ssd_score_kernel", "ssd_state_kernel",
                               "ssd_out_kernel")}
     print("[build] ssd_scan_mma ptxas: " + json.dumps(ssd_ptxas), flush=True)
+    # The sweeps' forms by template arguments (staged or direct, repay_init).
+    sweep_ptxas = {name: _ptxas_summary(_build.build_log(name), f"{name}_kernel", None)
+                   for name in ("placement_sweep", "placement_sweep_batch")}
+    print("[build] placement sweeps ptxas (staged, repay_init): " + json.dumps(sweep_ptxas),
+          flush=True)
+    spills = {(name, form): v for name, forms in sweep_ptxas.items() for form, v in forms.items()
+              if v.get("spill_store_bytes", 0) or v.get("spill_load_bytes", 0)}
+    if spills:
+        raise AssertionError(f"placement sweeps: ptxas reports spills in {spills}")
     return {"sources": sources, "seconds": secs, "flash_attention_mma_ptxas": ptxas,
-            "ssd_scan_mma_ptxas": ssd_ptxas}
+            "ssd_scan_mma_ptxas": ssd_ptxas, "placement_sweep_ptxas": sweep_ptxas}
 
 
 def _template_args(mangled: str) -> str:
@@ -395,8 +424,50 @@ def _events_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _equal_outs(got, want, what: str) -> int:
+    """Kernel outputs == plain outputs, exactly; the largest difference (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = 0
+    for g, w, out in zip(got, want, ("feasible", "placed", "n_splits", "devices_used"),
+                         strict=True):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {out} differs")
+        err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
+    return err
+
+
+def _one_in(t):
+    """``t`` copied into a buffer one element in: contiguous, 8-byte aligned
+    and not 16-byte aligned."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 8
+    return view
+
+
+def _timed(kernel, plain, steps_fn, args, n_bytes: int, plan, **rec) -> dict:
+    """One shape's record: the kernel's and the plain version's device time
+    (call: PADPS-FR, resume cost 0), the plan's path, and the bound from the
+    bytes and this input's row-steps."""
+    call = dict(repay_init=True, resume_cost=0.0)
+    ms = _events_ms(lambda: kernel(*args, **call), TIMED_REPS)
+    plain_ms = _events_ms(lambda: plain(*args, **call), TIMED_REPS)
+    (feas, *_), steps = steps_fn(*args, call["resume_cost"], call["repay_init"])
+    return {**rec, "path": plan.path, "warps": plan.warps, "grid": plan.grid,
+            "feasible_rows": int(feas.sum()), "row_steps": steps, "bytes": n_bytes, "ms": ms,
+            "plain_ms": plain_ms, **_bound(n_bytes, steps), "library_ms": None}
+
+
 def phase_kernel_vs_plain(device) -> dict:
-    """placement_sweep: kernel == plain version on the card, then timed."""
+    """placement_sweep: kernel == plain version on the card (ragged rows,
+    10^6 rows, the deep ramp's blocks, an 8-byte-aligned view, rows of 7000
+    tasks; five option variants each), then timed at 10^6 rows and at each
+    of the deep ramp's blocks."""
     import torch
 
     from repro_torch.core import FleetSpec
@@ -405,54 +476,65 @@ def phase_kernel_vs_plain(device) -> dict:
         _plain_sweep,
         placement_sweep_cuda,
         placement_sweep_plain,
+        sweep_plan,
     )
 
-    n_t = n_f = 8
-    fleet = FleetSpec(n_f=n_f, t_slr=80.0, t_cfg=4.0)
     rng = np.random.default_rng(3)
-    iis_np = rng.uniform(1.0, 5.0, n_t)
     on = dict(dtype=torch.float64, device=device)
-    iis = torch.tensor(iis_np, **on)
-    slr = torch.tensor(fleet.t_slr_arr, **on)
-    cfg = torch.tensor(fleet.t_cfg_arr, **on)
-    slr_s, cfg_s = (torch.tensor(a, **on) for a in survivor_tables(fleet.t_slr_arr, fleet.t_cfg_arr, 1))
-    variants = [
-        ("padpsfr", slr, cfg, dict(repay_init=True, resume_cost=0.0)),
-        ("padpsfr-resume9.5", slr, cfg, dict(repay_init=True, resume_cost=9.5)),
-        ("preemptive-resume0", slr, cfg, dict(repay_init=False, resume_cost=0.0)),
-        ("preemptive-resume9.5", slr, cfg, dict(repay_init=False, resume_cost=9.5)),
-        ("survivors-k1", slr_s, cfg_s, dict(repay_init=True, resume_cost=0.0)),
-    ]
-    max_err = 0
-    big = None
-    for B in (*RAGGED_ROWS, SWEEP_ROWS):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def tables(n_t, fleet, iis_hi=5.0):
+        iis = torch.tensor(rng.uniform(1.0, iis_hi, n_t), **on)
+        slr = torch.tensor(fleet.t_slr_arr, **on)
+        cfg = torch.tensor(fleet.t_cfg_arr, **on)
+        slr_s, cfg_s = (torch.tensor(a, **on)
+                        for a in survivor_tables(fleet.t_slr_arr, fleet.t_cfg_arr, 1))
+        return iis, [
+            ("padpsfr", slr, cfg, dict(repay_init=True, resume_cost=0.0)),
+            ("padpsfr-resume9.5", slr, cfg, dict(repay_init=True, resume_cost=9.5)),
+            ("preemptive-resume0", slr, cfg, dict(repay_init=False, resume_cost=0.0)),
+            ("preemptive-resume9.5", slr, cfg, dict(repay_init=False, resume_cost=9.5)),
+            ("survivors-k1", slr_s, cfg_s, dict(repay_init=True, resume_cost=0.0)),
+        ]
+
+    table_fleet = FleetSpec(n_f=8, t_slr=80.0, t_cfg=4.0)
+    deep_fleet = deep_instance()[1]
+    wide_fleet = FleetSpec(n_f=WIDE_ROWS[2], t_slr=2e4, t_cfg=0.5)
+    cases = [(f"B={B}", B, 8, table_fleet) for B in (*RAGGED_ROWS, SWEEP_ROWS)]
+    cases += [(f"deep B={B}", B, DEEP_TASKS, deep_fleet) for B in DEEP_BLOCKS]
+    cases += [(f"one-in B={DEEP_BLOCKS[-1]}", DEEP_BLOCKS[-1], DEEP_TASKS, deep_fleet),
+              (f"wide B={WIDE_ROWS[0]} n_t={WIDE_ROWS[1]}", WIDE_ROWS[0], WIDE_ROWS[1], wide_fleet)]
+    max_err, inputs = 0, {}
+    for name, B, n_t, fleet in cases:
+        iis, variants = tables(n_t, fleet, iis_hi=5.0 if n_t <= 10 else 1.0)
         shares = torch.tensor(sweep_block(rng, B, n_t, fleet.capacity), **on)
-        for name, s_tab, c_tab, kw in variants:
-            got = placement_sweep_cuda(shares, iis, s_tab, c_tab, **kw)
-            want = placement_sweep_plain(shares, iis, s_tab, c_tab, **kw)
-            torch.cuda.synchronize()
-            for g, w, out in zip(got, want, ("feasible", "placed", "n_splits", "devices_used"),
-                                 strict=True):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"placement_sweep {name} B={B}: {out} differs")
-                max_err = max(max_err, int((g.long() - w.long()).abs().max()))
-        n_feas = int(got[0].sum())
-        print(f"[kernel] placement_sweep B={B}: 5 variants equal to plain "
-              f"(last: {n_feas}/{B} feasible)", flush=True)
-        if B == SWEEP_ROWS:
-            big = shares
-    assert big is not None
-    call = dict(repay_init=True, resume_cost=0.0)
-    ms = _events_ms(lambda: placement_sweep_cuda(big, iis, slr, cfg, **call), TIMED_REPS)
-    plain_ms = _events_ms(lambda: placement_sweep_plain(big, iis, slr, cfg, **call), TIMED_REPS)
-    (feas, *_), steps = _plain_sweep(big, iis, slr, cfg, call["resume_cost"], call["repay_init"])
-    n_bytes = 8 * SWEEP_ROWS * n_t + 8 * (n_t + 2 * n_f) + SWEEP_ROWS * (1 + 4 + 4 + 4)
-    rec = {
-        "rows": SWEEP_ROWS, "n_t": n_t, "n_f": n_f, "feasible_rows": int(feas.sum()),
-        "row_steps": steps, "bytes": n_bytes, "ms": ms, "plain_ms": plain_ms,
-        **_bound(n_bytes, steps), "max_abs_err": max_err, "library_ms": None,
-    }
+        if name.startswith("one-in"):
+            shares = _one_in(shares)
+        for vname, s_tab, c_tab, kw in variants:
+            max_err = max(max_err, _equal_outs(placement_sweep_cuda(shares, iis, s_tab, c_tab, **kw),
+                                               placement_sweep_plain(shares, iis, s_tab, c_tab, **kw),
+                                               f"placement_sweep {vname} {name}"))
+        plan = sweep_plan(1, B, n_t, fleet.n_f, sm_count=sms, aligned=shares.data_ptr() % 16 == 0)
+        feas = placement_sweep_cuda(shares, iis, variants[0][1], variants[0][2])[0]
+        print(f"[kernel] placement_sweep {name}: 5 variants equal to plain, {plan.path} path "
+              f"(last: {int(feas.sum())}/{B} feasible)", flush=True)
+        inputs[name] = (plan, (shares, iis, variants[0][1], variants[0][2]))
+
+    def timed(name, **rec):
+        plan, args = inputs[name]
+        B, n_t = args[0].shape
+        n_f = args[2].shape[0]
+        n_bytes = 8 * B * n_t + 8 * (n_t + 2 * n_f) + B * (1 + 4 + 4 + 4)
+        return _timed(placement_sweep_cuda, placement_sweep_plain, _plain_sweep, args, n_bytes,
+                      plan, rows=B, n_t=n_t, n_f=n_f, **rec)
+
+    rec = timed(f"B={SWEEP_ROWS}", max_abs_err=max_err)
     print("[kernel] " + json.dumps({"placement_sweep_timing": rec}), flush=True)
+    rec["main_path"] = [timed(f"deep B={B}") for B in DEEP_BLOCKS]
+    for r in rec["main_path"]:
+        print(f"[kernel] placement_sweep deep block {r['rows']} x {r['n_t']}: {r['ms']:.4f} ms "
+              f"({r['path']}), bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms",
+              flush=True)
     return rec
 
 
@@ -465,22 +547,41 @@ def _bound(n_bytes: int, row_steps: int) -> dict:
 
 def phase_batch_kernel_vs_plain(device) -> dict:
     """placement_sweep_batch: kernel == plain version on the card over the
-    whole (B, R) output (full round, ragged stack, survivors, five option
-    variants), then timed at the full round."""
+    whole (B, R) output (the full round; the ragged stack; 64-instance
+    rounds at R = 16 and R = 1 with mixed live widths, so several widths
+    share a warp; a stack whose rows are no multiple of a tile; an
+    8-byte-aligned view of the round; rows of 7000 tasks; five option
+    variants each, survivors included), then timed at the full round and at
+    schedule_many's 64-instance rounds of 16, 64 and 512 rows."""
     import torch
 
     from repro_torch.kernels.placement_step import (
         _plain_sweep_batch,
         placement_sweep_batch_cuda,
         placement_sweep_batch_plain,
+        sweep_plan,
     )
 
     rng = np.random.default_rng(4)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def mixed(B, R, n_t, n_f):  # instance 0 at the padded widths, the rest mixed
+        return [(R, n_t, n_f)] + [(R, int(rng.integers(1, n_t + 1)), int(rng.integers(1, n_f + 1)))
+                                  for _ in range(B - 1)]
+
+    B0, n_t0, n_f0 = ROUND["B"], ROUND["n_t"], ROUND["n_f"]
     stacks = {
-        "full-round": instance_stack(rng, [(ROUND["R"], ROUND["n_t"], ROUND["n_f"])] * ROUND["B"],
-                                     device),
+        "full-round": instance_stack(rng, [(ROUND["R"], n_t0, n_f0)] * B0, device),
         "ragged": instance_stack(rng, RAGGED_STACK, device),
+        "round-R16-mixed": instance_stack(rng, mixed(B0, 16, n_t0, n_f0), device),
+        "R1-mixed": instance_stack(rng, mixed(B0, 1, n_t0, n_f0), device),
+        "ragged-tail-5x33x10": instance_stack(rng, mixed(5, 33, 10, n_f0), device),
+        "wide-2x40x7000": instance_stack(rng, [(40, 7000, 3), (40, 6995, 2)], device, small=True),
     }
+    main, surv = stacks["full-round"]
+    stacks["one-in-full-round"] = ((_one_in(main[0]), *main[1:]), (_one_in(surv[0]), *surv[1:]))
+    for R in MANY_ROUNDS:
+        stacks[f"round-R{R}"] = instance_stack(rng, [(R, n_t0, n_f0)] * B0, device)
     variants = [
         ("padpsfr", 0, dict(repay_init=True, resume_cost=0.0)),
         ("padpsfr-resume9.5", 0, dict(repay_init=True, resume_cost=9.5)),
@@ -492,33 +593,35 @@ def phase_batch_kernel_vs_plain(device) -> dict:
     for kind, tables in stacks.items():
         for name, which, kw in variants:
             args = tables[which]
-            got = placement_sweep_batch_cuda(*args, **kw)
-            want = placement_sweep_batch_plain(*args, **kw)
-            torch.cuda.synchronize()
-            for g, w, out in zip(got, want, ("feasible", "placed", "n_splits", "devices_used"),
-                                 strict=True):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"placement_sweep_batch {name} {kind}: {out} differs")
-                max_err = max(max_err, int((g.long() - w.long()).abs().max()))
-        B, R = tables[0][0].shape[:2]
-        print(f"[kernel] placement_sweep_batch {kind} B={B} R={R}: 5 variants equal to plain "
-              f"(last: {int(got[0].sum())}/{B * R} feasible; survivor widths "
+            max_err = max(max_err, _equal_outs(placement_sweep_batch_cuda(*args, **kw),
+                                               placement_sweep_batch_plain(*args, **kw),
+                                               f"placement_sweep_batch {name} {kind}"))
+        B, R, n_t = tables[0][0].shape
+        plan = sweep_plan(B, R, n_t, tables[0][2].shape[1], sm_count=sms,
+                          aligned=tables[0][0].data_ptr() % 16 == 0)
+        feas = placement_sweep_batch_cuda(*tables[0])[0]
+        print(f"[kernel] placement_sweep_batch {kind} B={B} R={R}: 5 variants equal to plain, "
+              f"{plan.path} path (last: {int(feas.sum())}/{B * R} feasible; survivor widths "
               f"{tables[1][5].tolist() if B < 16 else 'full'})", flush=True)
-    args = stacks["full-round"][0]
-    call = dict(repay_init=True, resume_cost=0.0)
-    ms = _events_ms(lambda: placement_sweep_batch_cuda(*args, **call), TIMED_REPS)
-    plain_ms = _events_ms(lambda: placement_sweep_batch_plain(*args, **call), TIMED_REPS)
-    (feas, *_), steps = _plain_sweep_batch(*args, call["resume_cost"], call["repay_init"])
-    B, R, n_t, n_f = ROUND["B"], ROUND["R"], ROUND["n_t"], ROUND["n_f"]
-    # Shares and tables read once, two int32 counts an instance, 13 B of
-    # outputs a row written once.
-    n_bytes = 8 * B * R * n_t + 8 * B * (n_t + 2 * n_f) + 8 * B + 13 * B * R
-    rec = {
-        **ROUND, "rows": B * R, "feasible_rows": int(feas.sum()), "row_steps": steps,
-        "bytes": n_bytes, "ms": ms, "plain_ms": plain_ms, **_bound(n_bytes, steps),
-        "max_abs_err": max_err, "library_ms": None,
-    }
+
+    def timed(kind, **rec):
+        args = stacks[kind][0]
+        B, R, n_t = args[0].shape
+        n_f = args[2].shape[1]
+        # Shares and tables read once, two int32 counts an instance, 13 B of
+        # outputs a row written once.
+        n_bytes = 8 * B * R * n_t + 8 * B * (n_t + 2 * n_f) + 8 * B + 13 * B * R
+        plan = sweep_plan(B, R, n_t, n_f, sm_count=sms)
+        return _timed(placement_sweep_batch_cuda, placement_sweep_batch_plain, _plain_sweep_batch,
+                      args, n_bytes, plan, B=B, R=R, n_t=n_t, n_f=n_f, rows=B * R, **rec)
+
+    rec = timed("full-round", max_abs_err=max_err)
     print("[kernel] " + json.dumps({"placement_sweep_batch_timing": rec}), flush=True)
+    rec["main_path"] = [timed(f"round-R{R}") for R in MANY_ROUNDS]
+    for r in rec["main_path"]:
+        print(f"[kernel] placement_sweep_batch round {r['B']} x {r['R']} x {r['n_t']}: "
+              f"{r['ms']:.4f} ms ({r['path']}), bound {r['bound_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.3f} ms", flush=True)
     return rec
 
 

@@ -12,29 +12,27 @@
 // computed, padded rows included, so the outputs can be compared whole with
 // the plain version; the caller masks rows past each instance's n_rows.
 //
-// Exactness: the chain is kernel 1's, in the scalar oracle's order:
-//   avail     = (c - tcfg) - extra
-//   can_start = (c > (tcfg + ii) + EPS) && (avail > EPS)
-//   split     = (rem - avail) > EPS
-//   c_after   = avail - rem
-//   closure   = c_after <= (tcfg + ii) + EPS
-// built with -fmad=false and no fast-math.  The only change is that the
-// static widths become the instance's live counts: a row is live while
-// k < n_t_eff; it dies when its device cursor reaches n_f_eff with tasks
-// left; it refills capacity only while j < n_f_eff.  So padded task columns
-// and device slots never enter a live decision, and each instance's
-// verdicts equal a solo sweep on its unpadded block, bit for bit.  Gathers
-// clamp to the padded widths, as the reference does, so no count can read
-// outside the tables; an instance with n_f_eff == 0 reads the zero pad at
-// slot 0 and its rows with live tasks die at the first step.
+// Exactness: the row loop of placement_sweep.cuh, in the scalar oracle's
+// order (avail = (c - tcfg) - extra, gate, split, c_after, closure), built
+// with -fmad=false and no fast-math: each instance's verdicts equal a solo
+// sweep on its unpadded block and the plain version, bit for bit.  A row
+// is live while k < n_t_eff; it dies when its device cursor reaches
+// n_f_eff with tasks left.  Counts are clamped to the padded widths, so no
+// gather can read outside the tables; an instance with n_f_eff == 0 reads
+// the zero pad at slot 0 and its rows with live tasks die at the first
+// step.
 //
-// Design: one thread per row, 256 threads a block, and each block holds
-// row tile t of instance b.  The grid is one-dimensional over B x
-// ceil(R / 256) tiles (blockIdx.x = b * tiles + t) rather than
-// (tiles, B), because a grid's y extent stops at 65535 instances.  A block
-// loads only its instance's tables (n_t + 2 n_f doubles) into dynamic
-// shared memory; every gather is then an indexed load.  The Pallas
-// kernel's one-hot masked sums were a TPU lowering device and are gone.
+// Design (placement_sweep.cuh): the B x R rows are tiled flattened, not
+// instance by instance: a warp takes 32 consecutive rows, which may belong
+// to several instances (two at R = 16, 32 at R = 1), so a 64-instance
+// round of 16 rows is 32 warps of 32 live rows, one an SM, where the
+// earlier kernel ran 64 blocks of 256 threads with 16 live.  A lane's
+// instance is row / R; on the staged path the tables and counts of the
+// instances a tile spans are staged in shared memory beside its rows, in
+// one cp.async group.  Row and table offsets are 64-bit (b R n_t can pass
+// 2^31).  The launch's sizes (warps a block, row stride, instances a
+// tile, copy width, path, grid) come from sweep_plan
+// (kernels/placement_step.py).
 //
 // Bound on this card: each share is read once (8 n_t bytes a row), the
 // tables once per instance, and 13 bytes a row are written; a row does ~12
@@ -44,117 +42,89 @@
 
 #include <cuda_runtime.h>
 
+#include "placement_sweep.cuh"
+
 namespace {
 
-constexpr double kEps = 1e-9;  // == repro_torch.core.placement._EPS
-constexpr int kThreads = 256;
+using placement_sweep::Plan;
+using placement_sweep::Stack;
 
-__global__ void __launch_bounds__(kThreads) placement_sweep_batch_kernel(
-    const double* __restrict__ shares,  // (B, R, n_t) row-major
-    const double* __restrict__ iis,     // (B, n_t)
-    const double* __restrict__ t_slr,   // (B, n_f)
-    const double* __restrict__ t_cfg,   // (B, n_f)
-    const int* __restrict__ n_t_eff,    // (B,)
-    const int* __restrict__ n_f_eff,    // (B,)
-    double resume_cost, int repay_init, int R, int tiles, int n_t, int n_f,
-    bool* __restrict__ feasible, int* __restrict__ placed,
-    int* __restrict__ n_splits, int* __restrict__ devices_used) {
-  extern __shared__ double tables[];
-  double* s_iis = tables;
-  double* s_slr = tables + n_t;
-  double* s_cfg = s_slr + n_f;
-  const long long b = blockIdx.x / tiles;
-  const int tile = blockIdx.x % tiles;
-  for (int i = threadIdx.x; i < n_t; i += blockDim.x) s_iis[i] = iis[b * n_t + i];
-  for (int i = threadIdx.x; i < n_f; i += blockDim.x) {
-    s_slr[i] = t_slr[b * n_f + i];
-    s_cfg[i] = t_cfg[b * n_f + i];
+// Flattened row `row` belongs to instance row / R.  A tile's position is
+// its first row's instance b0 and place in it (into < R < 2^31): one
+// 64-bit division a warp.  Lane `lane`'s instance among the tile's is
+// (into + lane) / R, with into + lane < R + 32: at R >= 32 a compare,
+// below it a float quotient that truncates exactly: (x + 0.5) / R for
+// x < 64 lies at least 1 / 64 from an integer, and the correctly rounded
+// float quotient errs by under 2^-18.
+struct InstanceOfRow {
+  static constexpr bool kCounted = true;
+  long long R;
+  struct Pos {
+    long long b0;
+    unsigned into;
+  };
+  __device__ Pos at(long long row0) const {
+    const long long b = row0 / R;
+    return {b, static_cast<unsigned>(row0 - b * R)};
   }
-  __syncthreads();
-
-  const int row = tile * kThreads + threadIdx.x;
-  if (row >= R) return;
-  const int nte = n_t_eff[b];
-  const int nfe = n_f_eff[b];
-  const long long out = b * R + row;
-  const double* r = shares + out * n_t;
-
-  int j = 0, k = 0, ns = 0, du = 0;
-  double c = s_slr[0];
-  double tsd = 0.0;
-  bool dead = false;
-  while (!dead && k < nte) {
-    const int kk = min(k, n_t - 1);
-    const int jj = min(j, n_f - 1);
-    const double ii = s_iis[kk];
-    const double tcfg = s_cfg[jj];
-    const bool carried = tsd > kEps;
-    const double extra = carried ? (repay_init ? ii : resume_cost) : 0.0;
-    const double rem = __ldg(r + kk) - tsd;
-    const double avail = (c - tcfg) - extra;
-    const double gate = (tcfg + ii) + kEps;
-    const bool can_start = (c > gate) && (avail > kEps);
-    const bool split = can_start && ((rem - avail) > kEps);
-    const bool fits = can_start && !split;
-
-    // Any placement (split or full) occupies the current device.
-    if (can_start && du < jj + 1) du = jj + 1;
-    // Split: run `avail` here, carry the remainder to the next device.
-    if (split) {
-      tsd = tsd + avail;
-      if (!carried) ++ns;
-    }
-    // Fits: consume cfg + extra + remaining share, advance the task.
-    const double c_after = avail - rem;
-    const bool closure = fits && (c_after <= gate);
-    if (fits) {
-      c = c_after;
-      ++k;
-      tsd = 0.0;
-    }
-    // Device advance: no-start, split carry, or closure after a fit.  The
-    // instance's live device count ends the row, not the padded width.
-    if (!can_start || split || closure) {
-      ++j;
-      if (j >= nfe) {
-        dead = k < nte;
-        break;
-      }
-      c = s_slr[min(j, n_f - 1)];
-    }
+  __device__ long long first(const Pos& q) const { return q.b0; }
+  __device__ int within(const Pos& q, int lane) const {
+    const unsigned x = q.into + lane;
+    if (R >= placement_sweep::kTile) return x >= R;
+    return static_cast<int>(__float2uint_rz((static_cast<float>(x) + 0.5f) /
+                                            static_cast<float>(R)));
   }
-  feasible[out] = (k >= nte) && !dead;
-  placed[out] = k;
-  n_splits[out] = ns;
-  devices_used[out] = du;
+  // Instances a tile of `nrows` rows spans.
+  __device__ int span(const Pos& q, int nrows) const { return within(q, nrows - 1) + 1; }
+};
+
+template <bool kStaged, bool kRepay>
+__global__ void __launch_bounds__(placement_sweep::kMaxThreads, 4)
+    placement_sweep_batch_kernel(Stack s, Plan p) {
+  placement_sweep::sweep_tile<kStaged, kRepay>(s, p, InstanceOfRow{s.R});
+}
+
+template <bool kStaged, bool kRepay>
+cudaError_t launch(const Stack& s, const Plan& p, int grid, size_t smem, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(placement_sweep_batch_kernel<kStaged, kRepay>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  placement_sweep_batch_kernel<kStaged, kRepay><<<grid, p.warps * placement_sweep::kTile, smem, st>>>(s, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the sweep on `stream` and returns cudaGetLastError() as an int
-// (0 on success).  B >= 1, R >= 1, n_t >= 1 and n_f >= 1 are the caller's
-// checks.
+// Launches the sweep on `stream` at the plan's sizes (sweep_plan) and
+// returns cudaGetLastError() as an int (0 on success).  B >= 1, R >= 1,
+// n_t >= 1 and n_f >= 1 are the caller's checks.
 extern "C" int placement_sweep_batch_f64(
     const double* shares, const double* iis, const double* t_slr,
     const double* t_cfg, const int* n_t_eff, const int* n_f_eff,
     double resume_cost, int repay_init, int B, int R, int n_t, int n_f,
-    bool* feasible, int* placed, int* n_splits, int* devices_used,
-    void* stream) {
-  const size_t smem = sizeof(double) * (static_cast<size_t>(n_t) + 2 * static_cast<size_t>(n_f));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        placement_sweep_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    bool* feasible, int* placed, int* n_splits, int* devices_used, int grid,
+    int warps, int stride, int span, int vec, int buffer_doubles, int direct,
+    long long smem, void* stream) {
+  const long long n = static_cast<long long>(B) * R;
+  const Stack s{shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff, n, R, n_t, n_f, resume_cost,
+                placement_sweep::kEps, feasible, placed, n_splits, devices_used};
+  const Plan p{warps, stride, span, vec, buffer_doubles};
+  cudaError_t e =
+      placement_sweep::check_plan(p, shares, n, n_t, n_f, grid, direct,
+                                  static_cast<size_t>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t bytes = static_cast<size_t>(smem);
+  if (direct) {
+    e = repay_init ? launch<false, true>(s, p, grid, 0, st) : launch<false, false>(s, p, grid, 0, st);
+  } else {
+    e = repay_init ? launch<true, true>(s, p, grid, bytes, st)
+                   : launch<true, false>(s, p, grid, bytes, st);
   }
-  const int tiles = (R + kThreads - 1) / kThreads;
-  const long long grid = static_cast<long long>(B) * tiles;
-  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  placement_sweep_batch_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      shares, iis, t_slr, t_cfg, n_t_eff, n_f_eff, resume_cost, repay_init, R,
-      tiles, n_t, n_f, feasible, placed, n_splits, devices_used);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 extern "C" const char* placement_sweep_batch_error_string(int code) {

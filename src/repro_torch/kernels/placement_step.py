@@ -23,6 +23,14 @@ gives the same four outputs as ``(B, R)`` tensors:
 * :func:`placement_sweep_batch_cuda` — the hand-written kernel
   (``csrc/placement_sweep_batch.cu``), one thread per row.
 
+Both kernels share one row loop and one tiling (``csrc/placement_sweep.cuh``)
+of the flattened ``B * R`` rows, 32 rows a warp; :func:`sweep_plan` sizes
+the launch (warps a block, staged row stride, instances a tile, copy
+width, shared memory, staged or direct path, grid) and the launchers take
+its fields, so the mapping of rows to blocks, warps and lanes is pure
+Python the CPU tests check.  Kernel 1 is the batched kernel's tiling over
+a stack of one instance.
+
 All four replay the scalar oracle's float64 operations in the same order,
 so kernel and plain version agree bit for bit.  Degenerate ``n_t == 0`` /
 ``n_f == 0`` widths are the caller's (``placement_backends.base``).
@@ -31,6 +39,8 @@ so kernel and plain version agree bit for bit.  Degenerate ``n_t == 0`` /
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from dataclasses import dataclass
 
 import torch
 
@@ -41,10 +51,160 @@ __all__ = [
     "placement_sweep_cuda",
     "placement_sweep_batch_plain",
     "placement_sweep_batch_cuda",
+    "sweep_plan",
+    "SweepPlan",
 ]
 
 _PLACE_EPS = 1e-9  # == repro_torch.core.placement._EPS
 _INT_MAX = 2**31 - 1  # the launchers take B and R as C ints
+
+# The tiling's sizes (csrc/placement_sweep.cuh) and the H100's per-SM
+# resources the plan sizes residency by: 2048 threads, 32 blocks and 228 KB
+# of shared memory an SM (1 KB of it reserved a block), 65536 registers,
+# at most 64 a thread (the kernels' __launch_bounds__(256, 4)).
+_TILE = 32  # rows a tile: a warp's, one row a lane
+_MAX_WARPS = 8  # warps a block
+_MAX_GRID = 2**31 - 1
+_SM_THREADS = 2048
+_SM_BLOCKS = 32
+_SM_SMEM = 233_472
+_BLOCK_RESERVED = 1024
+_SM_REGS = 65_536
+_REGS_A_THREAD = 64
+
+
+def _resident(threads: int, smem: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes one SM holds at once."""
+    by_smem = _SM_SMEM // (smem + _BLOCK_RESERVED) if smem else _SM_BLOCKS
+    return min(_SM_BLOCKS, _SM_THREADS // threads, _SM_REGS // (_REGS_A_THREAD * threads),
+               by_smem)
+
+
+@dataclass(frozen=True)
+class SweepPlan:
+    """One launch of a placement sweep over ``B * R`` flattened rows.
+
+    A tile is 32 consecutive rows, one a lane of a warp: tile t holds rows
+    ``tile_rows(t)``, the instance of row ``row`` is ``row // R``.  Warp w
+    of block i takes tile ``i * warps + w`` (``warp_tiles(i, w)``: one
+    tile, or none past the stack's end).  Staged path: a warp copies its
+    tile's shares into its own ``buffer_doubles`` doubles of shared memory,
+    at ``stride`` doubles a row by ``vec``-byte copies, beside the tables of
+    the at most ``span`` instances the tile spans.  Direct path
+    (``direct``; ``stride`` and ``buffer_doubles`` 0): each lane reads its
+    row and its instance's tables from device memory.
+    """
+
+    B: int
+    R: int
+    n_t: int
+    n_f: int
+    warps: int
+    stride: int
+    span: int
+    vec: int
+    buffer_doubles: int
+    grid: int
+    direct: bool
+
+    @property
+    def n_rows(self) -> int:
+        return self.B * self.R
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.n_rows // _TILE)
+
+    @property
+    def threads(self) -> int:
+        return _TILE * self.warps
+
+    @property
+    def smem(self) -> int:
+        return 8 * self.warps * self.buffer_doubles
+
+    @property
+    def path(self) -> str:
+        return "direct" if self.direct else "staged"
+
+    def warp_tiles(self, block: int, warp: int) -> range:
+        return range(block * self.warps + warp, self.tiles, self.grid * self.warps)
+
+    def tile_rows(self, t: int) -> range:
+        return range(t * _TILE, min((t + 1) * _TILE, self.n_rows))
+
+    def tile_instances(self, t: int) -> range:
+        """The instances tile t spans (its staged tables, in order)."""
+        rows = self.tile_rows(t)
+        return range(rows[0] // self.R, rows[-1] // self.R + 1)
+
+    def args(self) -> tuple[int, ...]:
+        """The launchers' trailing size arguments."""
+        return (self.grid, self.warps, self.stride, self.span, self.vec, self.buffer_doubles,
+                int(self.direct), self.smem)
+
+
+def _staged(B: int, R: int, n_t: int, n_f: int, stride: int) -> tuple[int, int]:
+    """(instances a tile may span, doubles a warp stages on the staged
+    path: the tile's rows at ``stride``, then the span's tables and two
+    int32 counts an instance; even)."""
+    span = min(B, -(-(_TILE - 1) // R) + 1)
+    doubles = _TILE * stride + span * (n_t + 2 * n_f + 1)
+    return span, doubles + doubles % 2
+
+
+def staged_warps(plan: SweepPlan, sm_count: int) -> int:
+    """Warps of ``plan``'s blocks (staged) the card holds at once."""
+    return sm_count * _resident(plan.threads, plan.smem) * plan.warps
+
+
+def sweep_plan(B: int, R: int, n_t: int, n_f: int, *, sm_count: int,
+               aligned: bool = True) -> SweepPlan:
+    """The launch for a ``(B, R, n_t)`` stack with ``n_f`` devices, on a
+    card of ``sm_count`` SMs; ``aligned`` says the shares start 16-byte
+    aligned (kernel 1 is ``B = 1``, ``R`` its rows).
+
+    * Tiles of 32 rows, one tile a warp; blocks of up to 8 warps,
+      fewer where 8 would leave SMs idle, so a small launch spreads one
+      warp an SM.
+    * Staged where the card holds every warp of the launch at once (a launch
+      of latency: one round trip brings a warp's whole tile); direct where
+      it does not (a launch bound by instruction throughput, where staging
+      the rows only adds instructions), and where a tile does not fit
+      ``MAX_SMEM``.
+    * Copies: 16 bytes where ``aligned`` and n_t is even (row stride n_t
+      or n_t + 2, even, so each 16-byte copy lands aligned), else 8 bytes
+      (stride odd: a warp's reads at one task index are free of bank
+      conflicts).
+    """
+    if min(B, R, n_t, n_f, sm_count) < 1:
+        raise ValueError(f"a plan needs B, R, n_t, n_f, sm_count >= 1; got "
+                         f"{B}, {R}, {n_t}, {n_f}, {sm_count}")
+    tiles = -(-(B * R) // _TILE)
+    vec = 16 if aligned and n_t % 2 == 0 else 8
+    stride = (n_t if n_t % 4 == 2 else n_t + 2) if vec == 16 else n_t | 1
+    span, doubles = _staged(B, R, n_t, n_f, stride)
+    warps = min(_MAX_WARPS, -(-tiles // sm_count), max(1, _build.MAX_SMEM // (8 * doubles)))
+    if -(-tiles // _MAX_WARPS) > _MAX_GRID:
+        raise ValueError(f"{B * R} rows need more than {_MAX_GRID} blocks")
+    plan = SweepPlan(B=B, R=R, n_t=n_t, n_f=n_f, warps=warps, stride=stride, span=span, vec=vec,
+                     buffer_doubles=doubles, grid=-(-tiles // warps), direct=False)
+    if 8 * doubles <= _build.MAX_SMEM and tiles <= staged_warps(plan, sm_count):
+        return plan
+    warps = min(_MAX_WARPS, -(-tiles // sm_count))
+    return dataclasses.replace(plan, warps=warps, stride=0, buffer_doubles=0, direct=True,
+                               grid=-(-tiles // warps))
+
+
+_SM_COUNTS: dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
+
 
 
 def _check_tensors(ref: torch.Tensor, dtype: torch.dtype, **named) -> None:
@@ -209,13 +369,16 @@ def placement_sweep_batch_plain(
 
 
 _P = ctypes.c_void_p
+# The plan's fields (SweepPlan.args): grid, warps, stride, span, vec,
+# buffer_doubles, direct, smem.
+_PLAN_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.c_longlong]
 _SWEEP_ARGTYPES = [
     _P, _P, _P, _P, ctypes.c_double, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, *_PLAN_ARGTYPES,
 ]
 _BATCH_ARGTYPES = [
     _P, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, *_PLAN_ARGTYPES,
 ]
 
 
@@ -244,10 +407,12 @@ def placement_sweep_cuda(
     outs = (feasible, placed, n_splits, devices_used)
     if B == 0:
         return outs  # a grid of zero blocks is a launch error
+    plan = sweep_plan(1, B, n_t, n_f, sm_count=_sm_count(dev),
+                      aligned=shares.data_ptr() % 16 == 0)
     _build.launch("placement_sweep", "placement_sweep_f64", _SWEEP_ARGTYPES, (
         shares.data_ptr(), iis.data_ptr(), t_slr.data_ptr(), t_cfg.data_ptr(),
         float(resume_cost), int(bool(repay_init)), B, n_t, n_f,
-        *(o.data_ptr() for o in outs),
+        *(o.data_ptr() for o in outs), *plan.args(),
     ), dev)
     placement_sweep_cuda.launches += 1
     return outs
@@ -272,8 +437,8 @@ def placement_sweep_batch_cuda(
 
     Tables are contiguous float64 and counts contiguous int32 CUDA tensors
     on one device.  The counts are not read back to be checked (that would
-    synchronise): the kernel clamps its gathers to the padded widths, so a
-    count outside ``[0, n_t]`` / ``[0, n_f]`` cannot read past the tables.
+    synchronise): the kernel clamps them to the padded widths, so a count
+    outside ``[0, n_t]`` / ``[0, n_f]`` cannot read past the tables.
     ``placement_sweep_batch_cuda.launches`` counts the launches made (an
     empty ``B * R == 0`` stack returns empty outputs and launches nothing).
     """
@@ -292,10 +457,12 @@ def placement_sweep_batch_cuda(
     outs = (feasible, placed, n_splits, devices_used)
     if B == 0 or R == 0:
         return outs  # a grid of zero blocks is a launch error
+    plan = sweep_plan(B, R, n_t, n_f, sm_count=_sm_count(dev),
+                      aligned=shares.data_ptr() % 16 == 0)
     _build.launch("placement_sweep_batch", "placement_sweep_batch_f64", _BATCH_ARGTYPES, (
         shares.data_ptr(), iis.data_ptr(), t_slr.data_ptr(), t_cfg.data_ptr(),
         n_t_eff.data_ptr(), n_f_eff.data_ptr(), float(resume_cost),
-        int(bool(repay_init)), B, R, n_t, n_f, *(o.data_ptr() for o in outs),
+        int(bool(repay_init)), B, R, n_t, n_f, *(o.data_ptr() for o in outs), *plan.args(),
     ), dev)
     placement_sweep_batch_cuda.launches += 1
     return outs

@@ -223,6 +223,130 @@ def test_cuda_engine_schedule_many_runs_on_kernel_2_only(cuda_device, kw):
 
 
 # ---------------------------------------------------------------------------
+# kernels 1 and 2 on their tile walk (sweep_plan): packed instances, R = 1,
+# ragged tails, persistent grids, 8-byte-aligned views, the deep ramp's
+# blocks and wide rows; every option variant, held exactly
+# ---------------------------------------------------------------------------
+
+VARIANTS = [
+    pytest.param(True, 0.0, False, id="padpsfr"),
+    pytest.param(True, 9.5, False, id="padpsfr-resume9.5"),
+    pytest.param(False, 0.0, False, id="preemptive-resume0"),
+    pytest.param(False, 9.5, False, id="preemptive-resume9.5"),
+    pytest.param(True, 0.0, True, id="survivors-k1"),
+]
+
+
+def _mixed_stack(B, R, n_t, n_f, seed, device):
+    """B instances of R rows, padded to (n_t, n_f), with mixed live widths
+    (so instances of several widths share a warp) and their resilience=1
+    survivor tables: (main args, survivor args)."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for b in range(B):  # instance 0 at the padded widths, the rest narrower or not
+        nt = n_t if b == 0 else int(rng.integers(1, n_t + 1))
+        nf = n_f if b == 0 else int(rng.integers(1, n_f + 1))
+        small = min(1.0, 8.0 / nt)  # keep wide rows placeable: small per-task costs
+        t_slr = rng.uniform(30.0, 120.0, nf)
+        blocks.append((
+            rng.uniform(0.5, 1.5, (R, nt)) * (rng.uniform(0.3, 1.3, (R, 1)) * t_slr.sum() / nt),
+            rng.uniform(0.0, 6.0, nt) * small, t_slr, rng.uniform(0.0, 8.0, nf) * small,
+        ))
+    batch = InstanceBatch.pack(blocks)
+    slr_s, cfg_s, nfe_s = survivor_batch_tables(batch.t_slr, batch.t_cfg, batch.n_f_eff, 1)
+
+    def on(a, dtype=torch.float64):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    main = (on(batch.shares), on(batch.iis), on(batch.t_slr), on(batch.t_cfg),
+            on(batch.n_t_eff, torch.int32), on(batch.n_f_eff, torch.int32))
+    return main, (*main[:2], on(slr_s), on(cfg_s), main[4], on(nfe_s, torch.int32))
+
+
+def _one_in(t):
+    """``t`` copied into a buffer one element in: contiguous, 8-byte aligned
+    and not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 8 and view.is_contiguous()
+    return view
+
+
+def _assert_equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+
+
+# (B, R, n_t, n_f): a 64-instance round at R = 16; R = 1; B * R no multiple
+# of a tile; a stack larger than the persistent grid (1024 tiles of 256
+# rows against 528 blocks); n_t = 7000 (the wide path).
+BATCH_TILE_CASES = {
+    "round-64xR16": (64, 16, 7, 4),
+    "R1-64": (64, 1, 7, 4),
+    "ragged-tail-5x33": (5, 33, 10, 4),
+    "persistent-64x4096": (64, 4096, 7, 4),
+    "wide-2x40x7000": (2, 40, 7000, 3),
+}
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("one_in", [False, True], ids=["aligned", "one-element-in"])
+@pytest.mark.parametrize("repay_init,resume,survivors", VARIANTS)
+@pytest.mark.parametrize("kind", list(BATCH_TILE_CASES))
+def test_placement_sweep_batch_kernel_tile_walk(cuda_device, kind, repay_init, resume,
+                                                 survivors, one_in):
+    """Kernel 2 == its plain version on the tile walk's shapes: tiles that
+    pack several instances of mixed live widths, 64-bit row offsets, a
+    persistent double-buffered grid, 8-byte copies from an unaligned view."""
+    B, R, n_t, n_f = BATCH_TILE_CASES[kind]
+    main, surv = _mixed_stack(B, R, n_t, n_f, len(kind), cuda_device)
+    args = list(surv if survivors else main)
+    if one_in:
+        args[0] = _one_in(args[0])
+    kw = dict(resume_cost=resume, repay_init=repay_init)
+    before = placement_sweep_batch_cuda.launches
+    got = placement_sweep_batch_cuda(*args, **kw)
+    assert placement_sweep_batch_cuda.launches == before + 1
+    _assert_equal(got, placement_sweep_batch_plain(*args, **kw))
+
+
+# (rows, n_t, n_f) of kernel 1: the deep ramp's first and widest blocks
+# (10 tasks, 6 devices), rows no multiple of a tile over a persistent grid
+# (300003 x 8: 1172 tiles), and n_t = 7000.
+SINGLE_TILE_CASES = {
+    "ramp-64x10x6": (64, 10, 6),
+    "ramp-65536x10x6": (65536, 10, 6),
+    "persistent-300003x8": (300_003, 8, 8),
+    "wide-300x7000": (300, 7000, 4),
+}
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("one_in", [False, True], ids=["aligned", "one-element-in"])
+@pytest.mark.parametrize("repay_init,resume,survivors", VARIANTS)
+@pytest.mark.parametrize("kind", list(SINGLE_TILE_CASES))
+def test_placement_sweep_kernel_tile_walk(cuda_device, kind, repay_init, resume, survivors,
+                                          one_in):
+    """Kernel 1 == its plain version on the tile walk's shapes."""
+    B, n_t, n_f = SINGLE_TILE_CASES[kind]
+    shares, iis, t_slr, t_cfg = _block(B, n_t, n_f, B + n_t, cuda_device)
+    if n_t > 8:  # keep wide rows placeable: small per-task costs
+        iis, t_cfg = iis * (8.0 / n_t), t_cfg * (8.0 / n_t)
+    if survivors:
+        t_slr, t_cfg = (torch.tensor(a, device=cuda_device)
+                        for a in survivor_tables(t_slr.cpu().numpy(), t_cfg.cpu().numpy(), 1))
+    if one_in:
+        shares = _one_in(shares)
+    kw = dict(resume_cost=resume, repay_init=repay_init)
+    before = placement_sweep_cuda.launches
+    got = placement_sweep_cuda(shares, iis, t_slr, t_cfg, **kw)
+    assert placement_sweep_cuda.launches == before + 1
+    _assert_equal(got, placement_sweep_plain(shares, iis, t_slr, t_cfg, **kw))
+
+
+# ---------------------------------------------------------------------------
 # kernels 3 and 4: flash attention and the SSD scan
 # ---------------------------------------------------------------------------
 
