@@ -70,7 +70,27 @@ Phases (each raises on failure, so any failure exits non-zero):
     the CPU (the plain path) with the same weights: 2 prompts of 128 tokens
     and 4 decode steps fed the same tokens, logits compared, the card's
     float32 prefill on the CUDA-core flash and SSD kernels (the CPU holds
-    recurrentgemma-2b's 13.4 GB of float32 weights once).
+    recurrentgemma-2b's 13.4 GB of float32 weights once);
+12. (run after phase 7) the service path, at the JAX package's bench sizes
+    (``benchmarks/scheduler_scale.py``, nothing cut), on ``engine="cuda"``:
+    (a) ``bench_replan``'s arrival leg (the deep instance recorded
+    exhaustively, a light task arrives), (b) ``bench_churn``'s exit leg (the
+    band at base 83 on 6 devices with an eps task recorded last, which
+    exits) and failure leg (the same fleet plus one tiny device, which
+    fails): each warm ``replan`` timed against the cold ``schedule()`` it
+    replaces, plans equal on the card and equal to the plain engine's, the
+    recordings equal too, the warm replan's launches, rows swept and rows
+    placed by the host's scalar oracle, and its device split traced; (c)
+    ``bench_churn``'s 200-event trace (``default_rng(11)``) through
+    ``SchedulerService(engine="cuda", max_stale=5)`` and the same service on
+    the plain engine, event by event, each solved event's plan equal to a
+    cold ``schedule()`` on the card: warm-hit rate, latency by kind, solved
+    events/s (over telemetry latency and over the service's wall time,
+    re-records included) against the cold loop; (d) ``bench_resilience``'s instance at
+    k = 0, 1, 2 (8, 20, 32 W) and ``run_fault_injection`` over seeds 0-7 (no
+    miss at k = 1 and 2; all 4 tasks miss at k = 0); (e) ``what_if_many``
+    of 64 candidate arrivals against 6 held tasks of a ``fleet_parallel``
+    band instance, each equal to a solo ``schedule()`` on the card.
 
 Float32 matrix products run in full float32 on the card
 (``torch.backends.cuda.matmul.allow_tf32`` is set False, as is cuDNN's
@@ -79,8 +99,14 @@ TF32 switch, though nothing here calls cuDNN).
 The launch counts are zeroed just before each main-path run and read just
 after it (for phase 6, around the many-walk alone: it must launch the
 fleet-parallel kernel and never the single-instance one; for phase 10,
-around one ``generate``); the comparisons of phases 2, 8, 9 and 9b are
-outside those windows.  The last three lines are the
+around one ``generate``; for phase 12, around the warm replans of (a)-(b)
+alone, around each call on the card's service in (c), around
+``power_premium`` and around ``run_fault_injection`` in (d), where the warm
+arrival replans, the trace's calls and each of (d)'s two runs must launch
+the single-instance kernel (the recordings, cold walks and checks lie
+outside), and around (e)'s ``what_if_many`` alone, which must launch the
+fleet-parallel kernel and never the single-instance one);
+the comparisons of phases 2, 8, 9 and 9b are outside those windows.  The last three lines are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
 result when no CUDA device is present or when run outside a checkout of
@@ -625,10 +651,13 @@ def phase_batch_kernel_vs_plain(device) -> dict:
     return rec
 
 
-def _same_result(a, b, what: str) -> None:
-    """Two ScheduleResults agree field for field (exact)."""
-    fields = ("feasible", "chosen_rank", "n_placement_rejects", "total_power",
-              "n_tss", "n_tfs", "n_tnfs")
+def _same_result(a, b, what: str, counts: bool = True) -> None:
+    """Two ScheduleResults agree field for field (exact); ``counts=False``
+    leaves out |TFS| and |TNFS|, which a recorded or warm result reports as
+    -1 where a cold exhaustive walk counts them."""
+    fields = ("feasible", "chosen_rank", "n_placement_rejects", "total_power", "n_tss")
+    if counts:
+        fields += ("n_tfs", "n_tnfs")
     for f in fields:
         if getattr(a, f) != getattr(b, f):
             raise AssertionError(f"{what}: {f} {getattr(a, f)} != {getattr(b, f)}")
@@ -847,6 +876,349 @@ def phase_options_many(engine: str) -> dict:
         print(f"[many-options] {kw}: {sum(r.feasible for r in got)}/{len(got)} feasible, "
               f"launches {json.dumps(launches)}", flush=True)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the service path (delta replanner, SchedulerService, faultsim)
+# ---------------------------------------------------------------------------
+
+
+def arrival_task():
+    """bench_replan's light arrival (benchmarks/scheduler_scale.py)."""
+    from repro_torch.core import Task, TaskVariant
+
+    return Task(name="arrival", period=10.0, data=25.0, init_interval=0.5,
+                variants=(TaskVariant(cu=1, throughput=5.0, power=1.0),
+                          TaskVariant(cu=2, throughput=10.0, power=2.5)))
+
+
+def eps_task(t_slr: float, name: str = "eps"):
+    """bench_churn's one-variant task of negligible share and power: appended
+    last and recorded, every recorded reject dies among the real tasks."""
+    from repro_torch.core import Task, TaskVariant
+
+    period, share = 50.0, 1e-6
+    return Task(name=name, period=period, data=1.0, init_interval=1.0,
+                variants=(TaskVariant(cu=1, throughput=t_slr / (period * share), power=1e-6),))
+
+
+def churn_deep_instance():
+    """bench_churn's deep instance: the band at base 83, winner ~58k rows deep."""
+    from repro_torch.core import FleetSpec
+
+    return band_tasks(10, 4, base=83.0), FleetSpec(n_f=6, t_slr=100.0, t_cfg=0.0)
+
+
+def churn_task(rng, name: str):
+    """bench_churn's random arrival: shares fall near-affinely with power,
+    scaled to the trace fleet's t_slr = 35."""
+    from repro_torch.core import Task, TaskVariant
+
+    nv = int(rng.integers(2, 5))
+    pws = np.sort(rng.uniform(3.0, 9.0, nv))
+    shr = np.maximum(31.0 - 2.8 * pws + rng.uniform(0.0, 1.5, nv), 4.0)
+    period = float(rng.uniform(20, 60))
+    ths = 1.0 * 35.0 / (period * shr)
+    return Task(name=name, period=period, data=1.0, init_interval=float(rng.uniform(2.0, 8.0)),
+                variants=tuple(TaskVariant(cu=j + 1, throughput=float(t), power=float(p))
+                               for j, (t, p) in enumerate(zip(ths, pws, strict=True))))
+
+
+def resilience_instance():
+    """bench_resilience's crafted instance: four share-25 tasks fill four
+    devices, so each resilience level forces hot share-10 upgrades."""
+    from repro_torch.core import FleetSpec, Task, TaskVariant
+
+    tasks = [Task(name=f"R{i}", period=10.0, data=20.0, init_interval=1.0,
+                  variants=(TaskVariant(cu=1, throughput=2.4, power=2.0),
+                            TaskVariant(cu=2, throughput=6.0, power=8.0)))
+             for i in range(4)]
+    return tasks, FleetSpec(n_f=4, t_slr=30.0, t_cfg=1.0)
+
+
+def _ms_runs(fn, reps: int):
+    """``fn()``'s result and its host wall times in ms over ``reps`` runs."""
+    out, times = None, []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def _same_state(a, b, what: str) -> None:
+    """Two PlanStates hold the same rows, verdicts and death depths."""
+    for name in ("rec_pow", "rec_sumshr", "rec_chosen", "rec_verdict", "rec_depth"):
+        x, y = getattr(a, name), getattr(b, name)
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: PlanState.{name} differs")
+    if a.complete_below != b.complete_below or a.origin != b.origin:
+        raise AssertionError(f"{what}: PlanState coverage or origin differs")
+
+
+def _warm_leg(name: str, engine: str, record, replan, cold, reps: int) -> dict:
+    """Record once, then time the warm replan and the cold schedule() it
+    replaces; the warm plan must equal the cold one.  The launch counts are
+    zeroed just before the warm replans and read just after them (the
+    recording and the cold walks lie outside), and each warm replan's
+    WalkStats says how many rows it swept (``rows``: dispatched, or placed
+    by the prefix probe) and how many the scalar oracle placed on the host
+    (``probe_rows``: the incumbent check and the prefix probe).  Returns
+    the record with the results under ``_res`` (record, warm, cold)."""
+    from repro_torch.core import WalkStats
+
+    rec, rec_ms = _ms_runs(record, 1)
+    stats: list = []
+
+    def warm_once():
+        stats.append(WalkStats())
+        return replan(rec.plan_state, stats[-1])
+
+    (warm, warm_ms), counts = _counted(lambda: _ms_runs(warm_once, reps))
+    cold_res, cold_ms = _ms_runs(cold, reps)
+    _same_result(warm, cold_res, f"{name} on {engine}: warm replan vs cold schedule()",
+                 counts=False)
+    walk = stats[-1].as_dict()
+    return {"leg": name, "engine": engine, "rank": cold_res.chosen_rank,
+            "recorded_rows": rec.plan_state.n_recorded, "origin": warm.plan_state.origin,
+            "warm_launches": counts["placement_sweep"],
+            "warm_launches_a_run": counts["placement_sweep"] / reps,
+            "warm_walk": {k: walk[k] for k in ("rows", "probe_rows", "n_blocks", "block_sizes")},
+            "record_ms": rec_ms[0], "warm_ms": warm_ms, "cold_ms": cold_ms,
+            "warm_over_cold": statistics.median(cold_ms) / statistics.median(warm_ms),
+            "_res": (rec, warm, cold_res)}
+
+
+def phase_replan_legs(engine: str) -> dict:
+    """Phase 12 (a) and (b): bench_replan's arrival leg and bench_churn's exit
+    and failure legs at the bench's full sizes, each recorded exhaustively,
+    the warm replan timed against the cold schedule() of the post-event
+    instance on ``engine`` and on the plain engine, plans and recordings
+    equal across the two, the warm replan's device split traced."""
+    from repro_torch.core import DeviceProfile, FleetSpec, PADPSFRScheduler
+
+    tasks, fleet = deep_instance()
+    ctasks, cfleet = churn_deep_instance()
+    extended = [*tasks, arrival_task()]
+    eps = eps_task(cfleet.t_slr)
+    dev = DeviceProfile(t_slr=cfleet.t_slr, t_cfg=cfleet.t_cfg)
+    tiny = DeviceProfile(t_slr=0.5, t_cfg=cfleet.t_cfg)
+    big = FleetSpec.heterogeneous([dev] * cfleet.n_f + [tiny], name="churn-het")
+    small = FleetSpec.heterogeneous([dev] * cfleet.n_f, name="churn-het")
+
+    def legs(eng: str) -> dict:  # leg -> (record, replan from a state, cold)
+        s, cs, bs, ss = (PADPSFRScheduler(f, engine=eng, exhaustive=False)
+                         for f in (fleet, cfleet, big, small))
+        return {
+            "arrival": (lambda: s.schedule(tasks, record_state=True, record_exhaustive=True),
+                        lambda st, ws=None: s.replan(st, extended, walk_stats=ws),
+                        lambda: s.schedule(extended)),
+            "exit": (lambda: cs.schedule([*ctasks, eps], record_state=True,
+                                         record_exhaustive=True),
+                     lambda st, ws=None: cs.replan(st, ctasks, walk_stats=ws),
+                     lambda: cs.schedule(ctasks)),
+            "failure": (lambda: bs.schedule(ctasks, record_state=True, record_exhaustive=True),
+                        lambda st, ws=None: bs.replan(st, ctasks, fleet=small, walk_stats=ws),
+                        lambda: ss.schedule(ctasks)),
+        }
+
+    card, plain = legs(engine), legs("torch")
+    out = {}
+    for name, fns in card.items():
+        c = _warm_leg(name, engine, *fns, reps=3)
+        p = _warm_leg(name, "torch", *plain[name], reps=1)
+        what = f"{name} leg, {engine} vs torch"
+        _same_state(c["_res"][0].plan_state, p["_res"][0].plan_state, what + " (recording)")
+        _same_result(c["_res"][1], p["_res"][1], what + " (warm replan)", counts=False)
+        _same_state(c["_res"][1].plan_state, p["_res"][1].plan_state, what + " (warm state)")
+        state = c.pop("_res")[0].plan_state
+        rec = {**c, "torch_cpu": {k: p[k] for k in ("record_ms", "warm_ms", "cold_ms")},
+               "device_us": _device_split(lambda fns=fns, st=state: fns[1](st))}
+        print("[replan] " + json.dumps(rec), flush=True)
+        out[name] = rec
+    if engine != "torch" and out["arrival"]["warm_launches"] <= 0:
+        raise AssertionError("phase 12 (a): the warm arrival replans launched placement_sweep "
+                             f"{out['arrival']['warm_launches']} times")
+    return out
+
+
+def phase_churn_trace(engine: str, n_events: int = 200) -> dict:
+    """Phase 12 (c): bench_churn's 200-event trace (default_rng(11)) through
+    SchedulerService(engine, max_stale=5) and, event by event, through the
+    same service on the plain engine: the same admissions and plans; each
+    solved event's plan equal to a cold schedule() on ``engine``; the
+    warm-hit rate, latency by kind, and solved events/s against the cold
+    loop, over the events' telemetry latency and over the wall time of
+    the service's calls (its re-records included).  The launch counts are
+    zeroed just before each call on ``engine``'s service and read just
+    after it."""
+    from repro_torch.core import FleetSpec, PADPSFRScheduler
+    from repro_torch.service import SchedulerService
+
+    fleet = FleetSpec(n_f=4, t_slr=35.0, t_cfg=1.0)
+    card = SchedulerService(fleet, engine=engine, max_stale=5)
+    cpu = SchedulerService(fleet, engine="torch", max_stale=5)
+    rng = np.random.default_rng(11)
+    solved, kinds, counter = [], [], 0
+    launches: dict[str, int] = {}
+    wall_s = 0.0
+
+    def on_card(kind: str, call):  # one service call, counted and timed alone
+        nonlocal wall_s
+
+        def timed():
+            t0 = time.perf_counter()
+            out = call()
+            return out, time.perf_counter() - t0
+
+        (tel, dt), counts = _counted(timed)
+        wall_s += dt
+        launches[kind] = launches.get(kind, 0) + counts["placement_sweep"]
+        return tel
+
+    for _ in range(n_events):
+        roll = float(rng.random())
+        n_alive = len(card.tasks)
+        if (roll < 0.55 and n_alive < 8) or n_alive < 2:
+            kind, counter = "arrival", counter + 1
+            task = churn_task(rng, f"c{counter}")
+            tel, tel_cpu = on_card(kind, lambda: card.submit(task)), cpu.submit(task)
+        elif roll < 0.80 and n_alive:
+            kind = "exit"
+            name = card.tasks[int(rng.integers(0, n_alive))].name
+            tel, tel_cpu = on_card(kind, lambda: card.remove(name)), cpu.remove(name)
+        elif roll < 0.90 and card.fleet.n_f > 1:
+            kind = "failure"
+            tel, tel_cpu = on_card(kind, card.fail_device), cpu.fail_device()
+        else:
+            kind = "recovery"
+            tel, tel_cpu = on_card(kind, card.recover_device), cpu.recover_device()
+        kinds.append(kind)
+        what = f"churn trace event {len(kinds) - 1} ({tel.event})"
+        if (tel.admitted, card.tasks, card.fleet) != (tel_cpu.admitted, cpu.tasks, cpu.fleet):
+            raise AssertionError(f"{what}: {engine} and torch services diverged")
+        if (card.plan is None) != (cpu.plan is None):
+            raise AssertionError(f"{what}: one service holds no plan")
+        if card.plan is not None:
+            _same_result(card.plan, cpu.plan, f"{what}, {engine} vs torch", counts=False)
+        if tel.path not in ("admission", "noop") and card.tasks:
+            solved.append((kind, card.tasks, card.fleet, tel, card.plan))
+    scheds: dict = {}
+
+    def cold_loop(check: bool) -> None:
+        for i, (_, ts, fl, _, plan) in enumerate(solved):
+            if fl not in scheds:
+                scheds[fl] = PADPSFRScheduler(fl, engine=engine)
+            res = scheds[fl].schedule(ts)
+            if check:
+                _same_result(plan, res, f"churn trace solved event {i}: live vs cold", counts=False)
+
+    cold_loop(True)  # also the warm-up
+    _, cold_ms = _ms_runs(lambda: cold_loop(False), 1)
+    warm_paths = ("cache", "warm", "warm_exit", "warm_failure")
+    hits = sum(tel.path in warm_paths for *_, tel, _ in solved)
+    per_kind: dict[str, list[float]] = {}
+    for kind, _, _, tel, _ in solved:
+        per_kind.setdefault(kind, []).append(tel.latency_s * 1e3)
+    warm_ms = sum(tel.latency_s for *_, tel, _ in solved) * 1e3
+    paths: dict[str, int] = {}
+    for tel in card.telemetry:
+        paths[tel.path] = paths.get(tel.path, 0) + 1
+    rec = {
+        "n_events": n_events, "n_solved": len(solved),
+        "event_mix": {k: kinds.count(k) for k in sorted(set(kinds))},
+        "warm_hit_rate": hits / max(1, len(solved)), "paths": paths,
+        "paths_torch": {p: sum(t.path == p for t in cpu.telemetry) for p in paths},
+        "rerecords": card.rerecord_count, "rerecords_torch": cpu.rerecord_count,
+        "per_kind_mean_ms": {k: statistics.mean(v) for k, v in sorted(per_kind.items())},
+        "per_kind_median_ms": {k: statistics.median(v) for k, v in sorted(per_kind.items())},
+        "warm_total_ms": warm_ms, "service_wall_ms": wall_s * 1e3,
+        "cold_total_ms": cold_ms[0],
+        "events_per_s_warm": len(solved) / warm_ms * 1e3,
+        "events_per_s_warm_wall": len(solved) / wall_s,
+        "events_per_s_cold": len(solved) / cold_ms[0] * 1e3,
+        "launches_by_kind": launches, "launches": sum(launches.values()),
+    }
+    print("[churn] " + json.dumps(rec), flush=True)
+    if engine != "torch" and rec["launches"] <= 0:
+        raise AssertionError("phase 12 (c): the trace's service calls launched placement_sweep "
+                             f"{rec['launches']} times")
+    return rec
+
+
+def phase_resilience(engine: str) -> dict:
+    """Phase 12 (d): bench_resilience's instance at k = 0, 1, 2 (8, 20, 32 W)
+    and run_fault_injection over seeds 0-7: no miss at k = 1 and 2, all four
+    tasks missing at k = 0."""
+    from repro_torch.core import PADPSFRScheduler
+    from repro_torch.service import power_premium, run_fault_injection
+
+    tasks, fleet = resilience_instance()
+    sched = PADPSFRScheduler(fleet, engine=engine)
+    points = {}
+    for k in (0, 1, 2):
+        res, ms = _ms_runs(lambda k=k: sched.schedule(tasks, resilience=k), 3)
+        _same_result(res, PADPSFRScheduler(fleet, engine="torch").schedule(tasks, resilience=k),
+                     f"resilience k={k}, {engine} vs torch")
+        points[k] = {"power": res.total_power, "rank": res.chosen_rank, "ms": ms}
+    premium, premium_counts = _counted(lambda: power_premium(fleet, tasks, engine=engine))
+    if [points[k]["power"] for k in (0, 1, 2)] != [8.0, 20.0, 32.0] or [
+            premium[k]["power"] for k in (0, 1, 2)] != [8.0, 20.0, 32.0]:
+        raise AssertionError(f"resilience ladder: {points}, {premium}")
+
+    def inject():
+        runs = {k: [run_fault_injection(fleet, tasks, resilience=k, n_failures=k, seed=s,
+                                        engine=engine) for s in range(8)] for k in (1, 2)}
+        k0 = run_fault_injection(fleet, tasks, resilience=0, n_failures=1, seed=0,
+                                 engine=engine)
+        return runs, k0
+
+    (runs, k0), inject_counts = _counted(inject)
+    misses = {}
+    for k in (1, 2):
+        misses[k] = [r.total_misses for r in runs[k]]
+        if any(misses[k]) or not all(r.survived for r in runs[k]):
+            raise AssertionError(f"fault injection at k={k}: misses {misses[k]}")
+    if k0.total_misses != 4:
+        raise AssertionError(f"fault injection at k=0: {k0.total_misses} misses, want 4")
+    launches = {"power_premium": premium_counts["placement_sweep"],
+                "fault_injection": inject_counts["placement_sweep"]}
+    if engine != "torch" and min(launches.values()) <= 0:
+        raise AssertionError(f"phase 12 (d): placement_sweep launches {launches}")
+    rec = {"points": points, "premium_pct": {k: premium[k]["premium_pct"] for k in premium},
+           "misses_k1": misses[1], "misses_k2": misses[2], "misses_k0_seed0": k0.total_misses,
+           "launches": launches}
+    print("[resilience] " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_what_if(engine: str) -> dict:
+    """Phase 12 (e): the service holds the first 6 tasks of one band instance
+    of the fleet_parallel batch (4 devices) and is asked about 64 candidate
+    arrivals, the seventh task of each of the 64 instances, in one
+    what_if_many: kernel-2 launches only, each result equal to a solo
+    schedule() on the card."""
+    from repro_torch.core import PADPSFRScheduler
+    from repro_torch.service import SchedulerService
+
+    insts, fleet = fleet_parallel_instances()
+    svc = SchedulerService(fleet, engine=engine)
+    for t in insts[0].tasks[:6]:
+        if not svc.submit(t).admitted:
+            raise AssertionError(f"what-if: held task {t.name} was not admitted")
+    cands = [inst.tasks[6] for inst in insts]
+    (runs, launches) = _counted(lambda: _ms_runs(lambda: svc.what_if_many(cands), 2))
+    got, many_ms = runs
+    _check_many_launches("what_if_many", launches)
+    sched = PADPSFRScheduler(fleet, engine=engine)
+    solo, solo_ms = _ms_runs(lambda: [sched.schedule(svc.tasks + (c,)) for c in cands], 1)
+    for i, (g, w) in enumerate(zip(got, solo, strict=True)):
+        _same_result(g, w, f"what_if_many candidate {i} vs solo schedule()")
+    rec = {"held_tasks": len(svc.tasks), "candidates": len(cands),
+           "feasible": sum(g.feasible for g in got), "many_ms": many_ms, "solo_loop_ms": solo_ms[0],
+           "launches_two_runs": launches}
+    print("[what_if] " + json.dumps(rec), flush=True)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1360,6 +1732,30 @@ def main() -> int:
     print(f"[launches] placement_sweep_batch per schedule_many phase: "
           f"{json.dumps(many_launches)}", flush=True)
 
+    # phase 12: the service path; kernel 1 in the warm replans, the trace's
+    # service calls and fault injection, kernel 2 in what_if_many
+    legs = phase_replan_legs("cuda")
+    churn = phase_churn_trace("cuda")
+    resil = phase_resilience("cuda")
+    what_if = phase_what_if("cuda")
+    service_launches = {
+        **{f"warm_{k}": v["warm_launches"] for k, v in legs.items()},
+        "trace": churn["launches"], **resil["launches"],
+        "what_if_many": what_if["launches_two_runs"]["placement_sweep_batch"]}
+    print("[service] " + json.dumps({
+        "launches": service_launches,
+        "legs_ms": {k: {"record": v["record_ms"], "warm": statistics.median(v["warm_ms"]),
+                        "cold": statistics.median(v["cold_ms"]),
+                        "warm_over_cold": v["warm_over_cold"],
+                        "warm_launches_a_run": v["warm_launches_a_run"],
+                        "warm_probe_rows": v["warm_walk"]["probe_rows"]}
+                    for k, v in legs.items()},
+        "warm_hit_rate": churn["warm_hit_rate"],
+        "events_per_s_latency_wall_cold": [churn["events_per_s_warm"],
+                                           churn["events_per_s_warm_wall"],
+                                           churn["events_per_s_cold"]],
+        "fault_misses_k1_k2": [sum(resil["misses_k1"]), sum(resil["misses_k2"])]}), flush=True)
+
     serve = {name: phase_serve(name, device) for name in SERVE_MODELS}
     print(f"[launches] per served generate: "
           f"{json.dumps({n: r['launches'] for n, r in serve.items()})}", flush=True)
@@ -1374,9 +1770,10 @@ def main() -> int:
     kernels = []
     for name, replaces, rec, n in (
         ("placement_sweep", "src/repro/kernels/placement_step.py:136", timing,
-         sum(launches.values())),
+         sum(launches.values())
+         + sum(v for k, v in service_launches.items() if k != "what_if_many")),
         ("placement_sweep_batch", "src/repro/kernels/placement_step.py:267", timing_batch,
-         sum(many_launches.values())),
+         sum(many_launches.values()) + service_launches["what_if_many"]),
         ("flash_attention", "src/repro/kernels/flash_attention.py:121", timing_flash,
          served("flash_attention_mma")),
         ("ssd_scan", "src/repro/kernels/ssd_scan.py:103", timing_ssd, served("ssd_scan_mma")),

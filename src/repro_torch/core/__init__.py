@@ -35,6 +35,7 @@ from .placement_backends import (
     resolve_engine,
 )
 from .placement_batched import place_batch, place_combos_batch
+from .replan import PlanState
 from .scheduler import (
     PADPSFRScheduler,
     ScheduleInstance,
@@ -89,6 +90,7 @@ __all__ = [
     "resolve_engine",
     "place_batch",
     "place_combos_batch",
+    "PlanState",
     "PADPSFRScheduler",
     "ScheduleInstance",
     "ScheduleResult",

@@ -286,6 +286,48 @@ def _suffix_min_bounds(vecs: Sequence[np.ndarray]) -> tuple[np.ndarray, np.ndarr
     return suf, lo
 
 
+def _suffix_max_bounds(vecs: Sequence[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+    """Suffix maxima plus a certain float *over*estimate — the mirror of
+    :func:`_suffix_min_bounds` for cover pruning.
+
+    ``suf[d]`` is the maximum achievable sum over tasks ``d..n_t-1``;
+    ``hi`` adds a relative margin dwarfing any fold-association error, so
+    ``prefix + hi[d]`` certainly bounds every completion's forward-folded
+    sum from above.  ``hi[n_t] == 0.0`` exactly (nothing left to add).
+    Used by the delta replanner's removal-gap enumeration: a subtree
+    whose *over*estimated completion still passes the old instance's
+    eq. 7 is provably covered by the old recording and can be pruned.
+    """
+    maxs = np.asarray([v.max() for v in vecs], dtype=np.float64)
+    suf = np.concatenate([np.cumsum(maxs[::-1])[::-1], [0.0]])
+    hi = suf + (np.abs(suf) + 1.0) * 1e-12
+    hi[-1] = 0.0
+    return suf, hi
+
+
+def _emission_order(pp: np.ndarray, ch: np.ndarray) -> np.ndarray:
+    """Permutation sorting rows by the cold emission key.
+
+    Same key as :func:`_sort_emission` — ``(total_power, flat TSS
+    index)``, the flat index realised as a lexsort over the variant
+    columns — but returned as an index permutation so callers can
+    reorder side arrays (verdicts, provenance) along with the rows.
+    """
+    order = np.argsort(pp, kind="stable")
+    pps = pp[order]
+    eq = pps[1:] == pps[:-1]
+    if eq.any():
+        n_t = ch.shape[1]
+        starts = np.flatnonzero(np.concatenate([[True], ~eq]))
+        ends = np.append(starts[1:], pps.size)
+        for a, b in zip(starts, ends, strict=True):
+            if b - a > 1:
+                sub = ch[order[a:b]]
+                o = np.lexsort(tuple(sub[:, k] for k in range(n_t - 1, -1, -1)))
+                order[a:b] = order[a:b][o]
+    return order
+
+
 def _scalar_overhead_lb(fleet: FleetSpec, n_t: int, extra_cfgs: int = 1):
     """Scalar-call twin of :func:`config_overhead_lower_bound`.
 
@@ -394,7 +436,9 @@ class ComboBlock:
     :class:`TaskSetCombo` is materialised (``materialize(row)``) only for
     the single winning row, exactly like the exhaustive block walk.
     ``sum_shr`` carries each row's left-to-right-folded total share — the
-    exact value the eq-7 leaf test saw.
+    exact value the eq-7 leaf test saw — so a recorded walk
+    (:mod:`repro_torch.core.replan`) can re-apply eq. 7 to row *extensions*
+    bit-identically to a cold enumeration of the extended task set.
     """
 
     variant_idx: np.ndarray  # (B, n_t) int64 — variant choice per task
@@ -610,7 +654,8 @@ class BlockEnumerator:
     :meth:`FeasibilityResult.tfs_indices_by_power` order, asserted
     combo-for-combo in ``tests/test_block_enumeration.py``.
 
-    Being an explicit object (rather than a generator) gives two handles:
+    Being an explicit object (rather than a generator) gives the delta
+    replanner (:mod:`repro_torch.core.replan`) two handles:
 
     * **snapshot/restore** — :meth:`clone` copies the live frontier,
       buffered leaves and ready runs, so a walk can *resume* exactly where
@@ -633,6 +678,7 @@ class BlockEnumerator:
         min_expand: int = 16384,
         incumbent_power: float | None = None,
         resilience: int = 0,
+        cover_prune=None,
     ) -> None:
         tasks = tuple(tasks)
         validate_tasks(tasks)
@@ -644,6 +690,15 @@ class BlockEnumerator:
             float(incumbent_power) if incumbent_power is not None else np.inf
         )
         self.resilience = int(resilience)
+        # Optional subtree-coverage hook for the delta replanner's removal
+        # gap walk: ``cover_prune(depth, pshr)`` returns a boolean mask of
+        # prefix nodes *all* of whose completions are provably present in
+        # a previous recording — those subtrees are dropped, so the walk
+        # enumerates only the rows projection could have missed.  Dropping
+        # covered rows never loses a row the caller cannot recover (they
+        # are recovered from the recording), and keeping an uncovered row
+        # is always sound: the hook must only return True on certainty.
+        self.cover_prune = cover_prune
         # eq. 7 prunes against the worst-case survivor fleet when a
         # resilience guarantee is requested (see search_feasible): its
         # budget is a necessary condition for the survivor sweep, hence
@@ -674,6 +729,10 @@ class BlockEnumerator:
             self._empty_set_pending = bool(self._passes(np.zeros(1))[0]) and (
                 0.0 <= self.incumbent_power
             )
+            if self._empty_set_pending and self.cover_prune is not None:
+                self._empty_set_pending = not bool(
+                    self.cover_prune(0, np.zeros(1))[0]
+                )
             return
 
         _, self._pow_lo = _suffix_min_bounds(self.power_vecs)
@@ -683,8 +742,13 @@ class BlockEnumerator:
         # node's depth are 0 and ignored.
         self._frontier = _Frontier(n_t)
         root_bound = 0.0 + self._pow_lo[0]
-        if self._passes(np.asarray([0.0 + self._shr_lo[0]]))[0] and not (
-            root_bound > self.incumbent_power
+        root_covered = self.cover_prune is not None and bool(
+            self.cover_prune(0, np.zeros(1))[0]
+        )
+        if (
+            self._passes(np.asarray([0.0 + self._shr_lo[0]]))[0]
+            and not (root_bound > self.incumbent_power)
+            and not root_covered
         ):
             self._frontier.append(
                 np.asarray([root_bound]),
@@ -700,7 +764,8 @@ class BlockEnumerator:
         """Independent copy of the live search state (frontier, buffered
         leaves, ready runs) sharing the immutable per-task arrays.  The
         clone resumes emission exactly where this enumerator stands; the
-        original is untouched."""
+        original is untouched — this is the frontier snapshot a
+        :class:`repro_torch.core.replan.PlanState` keeps between replans."""
         out = BlockEnumerator.__new__(BlockEnumerator)
         out.__dict__.update(self.__dict__)
         out._frontier = self._frontier.clone()
@@ -796,6 +861,8 @@ class BlockEnumerator:
                 # Incumbent bound: the admissible power bound (exact at
                 # leaf depth) already exceeds a known-placeable plan.
                 ok &= ppow_c + self._pow_lo[d + 1] <= inc
+            if self.cover_prune is not None and ok.any():
+                ok &= ~self.cover_prune(d + 1, pshr_c)
             if not ok.any():
                 continue
             ppow_c, pshr_c, chosen_c = ppow_c[ok], pshr_c[ok], chosen_c[ok]

@@ -21,6 +21,11 @@ verdicts come back.  The facade bundles Alg 1 + Alg 2 + Alg 3 and reports
 the statistics the paper quotes (|TSS|, |TFS|, |TNFS|, placement rejects,
 chosen index).
 
+``schedule(record_state=True)`` snapshots the walk into a
+:class:`repro_torch.core.replan.PlanState`, from which
+:meth:`PADPSFRScheduler.replan` re-plans arrivals, exits and device
+failures warm (:mod:`repro_torch.core.replan`).
+
 :meth:`PADPSFRScheduler.schedule_many` runs many independent instances as
 one lockstep walk: each round packs every live instance's next block into
 one :class:`InstanceBatch` and sweeps it in one launch of the instance-axis
@@ -98,7 +103,9 @@ class WalkStats:
     pinned staging, enqueueing the copies and the launch), ``sync_us`` time
     waiting for verdicts to come back, and ``materialize_us`` the winning
     row's scalar plan.  ``block_sizes`` records the adaptive ramp actually
-    dispatched.
+    dispatched.  ``probe_rows`` counts the rows a re-plan placed with the
+    scalar oracle on the host instead (incumbent checks and the warm
+    walks' prefix probe; the prefix probe's rows also count in ``rows``).
     """
 
     enumerate_us: float = 0.0
@@ -106,6 +113,7 @@ class WalkStats:
     sync_us: float = 0.0
     materialize_us: float = 0.0
     rows: int = 0
+    probe_rows: int = 0
     block_sizes: list[int] = dataclasses.field(default_factory=list)
 
     @property
@@ -121,6 +129,7 @@ class WalkStats:
             "sync_us": self.sync_us,
             "materialize_us": self.materialize_us,
             "rows": self.rows,
+            "probe_rows": self.probe_rows,
             "n_blocks": len(self.block_sizes),
             "block_sizes": list(self.block_sizes),
         }
@@ -153,6 +162,9 @@ class ScheduleResult:
     n_tnfs: int
     n_placement_rejects: int  # TFS rows Alg 2 rejected before success
     total_power: float
+    # Warm-start snapshot (``schedule(record_state=True)`` / ``replan``):
+    # recorded TFS rows + the resumable enumerator, for delta replanning.
+    plan_state: "object | None" = dataclasses.field(default=None, repr=False)
 
     def summary(self, tasks: Sequence[Task] | None = None) -> str:
         if not self.feasible:
@@ -255,6 +267,7 @@ def _walk_tfs_blocks(
     backend: str | PlacementBackend,
     count_all_rejects: bool,
     walk_stats: WalkStats | None = None,
+    on_verdict=None,
     **placement_kw,
 ) -> tuple[TaskSetCombo | None, PlacementPlan | None, int, int]:
     """Shared Alg-2 walk over batched TFS blocks, pipelined.
@@ -273,6 +286,13 @@ def _walk_tfs_blocks(
     bookkeeping is identical to the synchronous walk.  Blocks enqueued but
     abandoned once the winner is known are simply dropped: their device
     buffers are stream-ordered and their host buffers held by the resolver.
+
+    ``on_verdict(rank_base, feasible, placed_tasks)`` — when given — is
+    called with every resolved block's boolean verdict vector and the
+    primary sweep's per-row placed-task counts (including the winning
+    block's, before the walk stops).  Abandoned blocks never reach it: the
+    delta replanner (:mod:`repro_torch.core.replan`) records those rows as
+    *unknown* rather than inventing verdicts.
     """
     if isinstance(backend, str):
         backend = get_backend(backend)
@@ -301,6 +321,8 @@ def _walk_tfs_blocks(
         t0 = now()
         bp = resolve()
         stats.sync_us += (now() - t0) * 1e6
+        if on_verdict is not None:
+            on_verdict(base, bp.feasible, bp.placed_tasks)
         if winner is None:
             r = bp.first_feasible()
             if r >= 0:
@@ -724,6 +746,7 @@ class PADPSFRScheduler:
         count_all_rejects: bool = False,
         walk_stats: WalkStats | None = None,
         record_state: bool = False,
+        record_exhaustive: bool = False,
         **placement_kw,
     ) -> ScheduleResult:
         """Run Alg 1 + Alg 2 + Alg 3 on ``tasks``: enumerate the workable
@@ -740,9 +763,19 @@ class PADPSFRScheduler:
         carries its survivor placement as ``plan.backup``.  ``k >= n_f``
         returns an infeasible result rather than raising.
 
-        ``record_state=True`` (the warm-start snapshot for delta
-        replanning) raises ``NotImplementedError``: the replanner is not
-        ported yet.
+        With ``record_state=True`` the walk additionally snapshots every
+        enumerated row, its placement verdict, and the live
+        branch-and-bound frontier into ``result.plan_state`` — the
+        warm-start input :meth:`replan` needs.  Recording always uses the
+        streaming block-native walk (results are bit-identical to the
+        exhaustive path either way, but ``n_tfs``/``n_tnfs`` are not
+        counted and report ``-1``).  ``record_exhaustive=True``
+        additionally walks *past* the winner so every TFS row carries a
+        placement verdict — slower once, but later arrival replans skip
+        dispatch for all recorded rejects (the service layer's
+        steady-state mode).  On ``"cuda"`` the block enqueued past the
+        winner is abandoned unresolved, so its rows are recorded with
+        unknown verdicts.
 
         Example (the eq-5 shares here are 30 or 15 per task against a
         2-device budget of ``2*30 - 3*1 = 57``):
@@ -761,14 +794,23 @@ class PADPSFRScheduler:
             >>> res.feasible, res.combo.variant_idx, res.total_power
             (True, (0, 1), 11.0)
         """
-        if record_state:
-            raise NotImplementedError(
-                "record_state=True needs the delta replanner, which is not ported yet"
-            )
         tasks = tuple(tasks)
         resilience = _validate_resilience(placement_kw)
         if resilience >= self.fleet.n_f and tasks:
             return _resilience_infeasible_result(tasks)
+        if record_state:
+            from . import replan as _replan
+
+            return _replan.schedule_recorded(
+                tasks,
+                self.fleet,
+                self._backend,
+                block_size=self.block_size,
+                count_all_rejects=count_all_rejects,
+                walk_stats=walk_stats,
+                exhaustive=record_exhaustive,
+                **placement_kw,
+            )
         use_exhaustive = self._use_exhaustive(tasks)
         feas = (
             search_feasible(tasks, self.fleet, resilience=resilience)
@@ -992,4 +1034,74 @@ class PADPSFRScheduler:
             )
         return sched.schedule(
             inst.tasks, count_all_rejects=count_all_rejects, **placement_kw
+        )
+
+    def replan(
+        self,
+        state,
+        tasks: Sequence[Task],
+        *,
+        fleet: FleetSpec | None = None,
+        record_exhaustive: bool = False,
+        walk_stats: WalkStats | None = None,
+        **placement_kw,
+    ) -> ScheduleResult:
+        """Reschedule ``tasks`` warm-starting from a previous plan.
+
+        ``state`` is the :class:`repro_torch.core.replan.PlanState` recorded by
+        ``schedule(..., record_state=True)`` (or by a previous
+        :meth:`replan`).  Three deltas take a warm path: task *arrivals*
+        (``tasks`` extends the recorded root's tasks) reuse the recorded
+        rows and the surviving branch-and-bound frontier; a single task
+        *exit* projects the recorded rows onto the surviving task axes
+        and walks only the thin power band the projection cannot cover;
+        a single *device failure* (``fleet`` shrinks by one device)
+        re-checks the recorded rows against the shrunken fleet's eq-7
+        budget, transferring recorded reject verdicts where monotonicity
+        makes that sound.  Every warm path emits a fresh carry-over
+        ``PlanState``, so consecutive warm events chain.  Any other delta
+        falls back to a fresh recorded walk seeded with the previous
+        winner as an incumbent power bound; ``record_exhaustive=True``
+        makes that fallback a full exhaustive re-record.  Either way the
+        returned plan is bit-identical to a cold :meth:`schedule` of the
+        same task tuple on the same fleet — only the latency differs.
+        See :mod:`repro_torch.core.replan` for the mechanism and the soundness
+        argument.
+
+        Example — continue from the :meth:`schedule` doctest's instance,
+        with a third task arriving:
+
+            >>> from repro_torch.core.task import FleetSpec, Task, TaskVariant
+            >>> def v(th, pw):
+            ...     return TaskVariant(cu=1, throughput=th, power=pw)
+            >>> tasks = [
+            ...     Task("a", period=10.0, data=20.0, init_interval=1.0,
+            ...          variants=(v(2.0, 5.0), v(4.0, 8.0))),
+            ...     Task("b", period=10.0, data=40.0, init_interval=1.0,
+            ...          variants=(v(4.0, 4.0), v(8.0, 6.0))),
+            ... ]
+            >>> fleet = FleetSpec(n_f=2, t_slr=30.0, t_cfg=1.0)
+            >>> sched = PADPSFRScheduler(fleet, engine="torch")
+            >>> res = sched.schedule(tasks, record_state=True)
+            >>> c = Task("c", period=10.0, data=30.0, init_interval=1.0,
+            ...          variants=(v(6.0, 3.0), v(12.0, 9.0)))
+            >>> warm = sched.replan(res.plan_state, tasks + [c])
+            >>> warm.feasible, warm.combo.variant_idx, warm.total_power
+            (True, (1, 1, 0), 17.0)
+            >>> cold = sched.schedule(tasks + [c])
+            >>> (warm.combo, warm.total_power, warm.chosen_rank) == (
+            ...     cold.combo, cold.total_power, cold.chosen_rank)
+            True
+        """
+        from . import replan as _replan
+
+        return _replan.replan(
+            state,
+            tuple(tasks),
+            backend=self._backend,
+            fleet=fleet if fleet is not None else self.fleet,
+            block_size=self.block_size,
+            record_exhaustive=record_exhaustive,
+            walk_stats=walk_stats,
+            **placement_kw,
         )

@@ -278,10 +278,27 @@ def test_port_imports_neither_jax_nor_the_reference():
                 assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
 
 
-def test_record_state_is_not_ported_yet():
-    tasks, fleet = port_examples.example1_tasks(), port_examples.example1_fleet()
-    with pytest.raises(NotImplementedError, match="replanner"):
-        PADPSFRScheduler(fleet, engine="torch").schedule(tasks, record_state=True)
+@pytest.mark.parametrize("exhaustive", [False, True], ids=["stop-at-winner", "exhaustive"])
+def test_record_state_returns_the_reference_plan_state(exhaustive):
+    """``schedule(record_state=True)`` on Example 1 returns a PlanState
+    whose recorded rows, verdicts and death depths equal the reference's."""
+    tasks, fleet = _paper("example1")
+    ref = RefScheduler(fleet, engine="numpy").schedule(
+        tasks, record_state=True, record_exhaustive=exhaustive
+    )
+    port = PADPSFRScheduler(fleet_from(fleet), engine="torch").schedule(
+        tasks_from(tasks), record_state=True, record_exhaustive=exhaustive
+    )
+    _assert_same(port, ref)
+    st, want = port.plan_state, ref.plan_state
+    assert type(st).__name__ == "PlanState" and st.engine == "torch"
+    for name in ("rec_pow", "rec_sumshr", "rec_chosen", "rec_verdict", "rec_depth"):
+        got, exp = getattr(st, name), getattr(want, name)
+        assert got.dtype == exp.dtype
+        np.testing.assert_array_equal(got, exp, err_msg=name)
+    assert st.complete_below == want.complete_below
+    assert st.origin == want.origin == "cold"
+    assert st.n_recorded >= port.chosen_rank + 1 == 5
 
 
 @pytest.mark.parametrize(
@@ -290,6 +307,7 @@ def test_record_state_is_not_ported_yet():
         "repro_torch.core.feasibility",
         "repro_torch.core.scheduler",
         "repro_torch.core.placement_batched",
+        "repro_torch.core.replan",
     ],
 )
 def test_port_doctests(modname):
