@@ -44,6 +44,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    where its 2048 window binds), the tensor-core kernel timed beside the
    plain version and ``scaled_dot_product_attention`` at both prefill
    shapes, with its bound and achieved TFLOP/s;
+8b. the tensor-core flash-attention kernel at the MoE, VLM and enc-dec
+   models' prefill shapes (``NEW_ATTN``: hd 128 at GQA groups 1 and 6,
+   causal; hd 64 without a mask and causal; a cross-attention of S 128
+   against T 1024), each against the plain version and timed beside it and
+   beside SDPA (``is_causal`` where causal, no mask otherwise: both exact);
 9. the SSD-scan kernels against their plain version (the reference kernel
    tests' four cases at float32, through the CUDA-core kernel, and at
    bfloat16, through the tensor-core kernel; chunk 48 and mamba2-130m's
@@ -57,20 +62,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    ptxas's registers and spills (none allowed).  In 9 and 9b, y is held
    at atol = rtol and the final state at atol alone, as the reference
    kernel tests hold them;
-10. ``ServeEngine.generate`` at the full published widths of smollm-135m
-    (30 layers), mamba2-130m (24 layers) and recurrentgemma-2b (26 layers)
-    in bfloat16 with seeded random weights: 8 prompts of 1024 tokens, 32
-    greedy tokens each; one kernel launch a layer in the prefill, by the
-    layer's kind (30 flash-attention; 24 SSD-scan; 18 RG-LRU-scan and 8
-    flash-attention; every flash-attention and SSD-scan launch on its
+10. ``ServeEngine.generate`` at the full published widths and depths of
+    smollm-135m (30 layers), mamba2-130m (24), recurrentgemma-2b (26),
+    qwen2-vl-2b (28; 256 patch embeddings on a 16 x 16 grid with 3-D
+    M-RoPE positions, then 768 tokens), seamless-m4t-large-v2 (24 encoder
+    layers over 1024 frame embeddings, 24 decoder layers over 1024 tokens)
+    and moonshot-v1-16b-a3b (48 MoE layers, 64 experts top-6; 28.1 B
+    parameters, run last, the earlier models freed) in bfloat16 with seeded
+    random weights: 8 prompts of 1024 positions, 32 greedy tokens each; the
+    prefill's launches by the layer's kind (30 flash-attention; 24
+    SSD-scan; 18 RG-LRU-scan and 8 flash-attention; 28; 72 = 24 encoder +
+    2 x 24 decoder; 48; every flash-attention and SSD-scan launch on its
     tensor-core kernel) and no other launch; the prefill's last logits
-    through the kernels beside those through their plain versions; prefill
-    ms, decode ms a token, tokens/s and the device split;
-11. the three models at full width and depth in float32 on the card and on
-    the CPU (the plain path) with the same weights: 2 prompts of 128 tokens
-    and 4 decode steps fed the same tokens, logits compared, the card's
-    float32 prefill on the CUDA-core flash and SSD kernels (the CPU holds
-    recurrentgemma-2b's 13.4 GB of float32 weights once);
+    through the kernels beside those through their plain versions (for the
+    MoE model also the tokens whose expert set differs); prefill ms, decode
+    ms a token, tokens/s and the device split;
+11. the six models at full width in float32 on the card and on the CPU
+    (the plain path) with the same weights, at full depth but for
+    moonshot-v1-16b-a3b's 2 of 48 layers (112 GB of float32 weights fit
+    nowhere): 2 prompts of 128 positions (qwen2-vl-2b: an 8 x 8 patch grid
+    and 64 tokens; seamless-m4t-large-v2: 128 frames and 128 tokens) and 4
+    decode steps fed the same tokens, logits compared, the card's float32
+    prefill on the CUDA-core flash and SSD kernels; for the MoE model the
+    tokens routed to another expert set on the card than on the CPU;
 12. (run after phase 7) the service path, at the JAX package's bench sizes
     (``benchmarks/scheduler_scale.py``, nothing cut), on ``engine="cuda"``:
     (a) ``bench_replan``'s arrival leg (the deep instance recorded
@@ -90,7 +104,13 @@ Phases (each raises on failure, so any failure exits non-zero):
     k = 0, 1, 2 (8, 20, 32 W) and ``run_fault_injection`` over seeds 0-7 (no
     miss at k = 1 and 2; all 4 tasks miss at k = 0); (e) ``what_if_many``
     of 64 candidate arrivals against 6 held tasks of a ``fleet_parallel``
-    band instance, each equal to a solo ``schedule()`` on the card.
+    band instance, each equal to a solo ``schedule()`` on the card;
+13. (run after phase 7) fleet planning on ``engine="cuda"``:
+    ``launch.schedule.main`` with its docstring's flags and
+    tests/test_cli.py's, ``plan_fleet`` on examples/quickstart.py's three
+    jobs and tests/test_scheduler_fleet.py's two cases, and Example 1 on
+    ``make_hetero_fleet``'s FPGA + GPU + CPU fleet, each output and plan
+    equal to the plain engine's, kernel 1 launched by every feasible plan.
 
 Float32 matrix products run in full float32 on the card
 (``torch.backends.cuda.matmul.allow_tf32`` is set False, as is cuDNN's
@@ -99,7 +119,8 @@ TF32 switch, though nothing here calls cuDNN).
 The launch counts are zeroed just before each main-path run and read just
 after it (for phase 6, around the many-walk alone: it must launch the
 fleet-parallel kernel and never the single-instance one; for phase 10,
-around one ``generate``; for phase 12, around the warm replans of (a)-(b)
+around one ``generate``; for phase 13, around each run on the card; for
+phase 12, around the warm replans of (a)-(b)
 alone, around each call on the card's service in (c), around
 ``power_premium`` and around ``run_fault_injection`` in (d), where the warm
 arrival replans, the trace's calls and each of (d)'s two runs must launch
@@ -115,6 +136,7 @@ the repository.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -198,9 +220,41 @@ MAMBA_SSD = (8, 1024, 24, 64, 1, 128, 256)
 RGEMMA_ATTN = (8, 1024, 1024, 10, 1, 256, True, 2048)
 RGEMMA_ATTN_WINDOW = (2, 4096, 4096, 10, 1, 256, True, 2048)
 RGEMMA_RGLRU = (8, 1024, 2560)
+# The MoE, VLM and enc-dec models' prefill attention (8 prompts of 1024
+# positions, bf16): moonshot-v1-16b-a3b (16 query and 16 kv heads of 128),
+# qwen2-vl-2b (12 query heads on 2 kv heads of 128), seamless-m4t-large-v2
+# (16 heads of 64: the encoder's self-attention and the decoder's
+# cross-attention without a mask, its self-attention causal), and a
+# cross-attention of 128 decoder positions against 1024 encoder frames.
+NEW_ATTN = {
+    "moonshot-v1-16b-a3b": (8, 1024, 1024, 16, 16, 128, True, 0),
+    "qwen2-vl-2b": (8, 1024, 1024, 12, 2, 128, True, 0),
+    "seamless-m4t-large-v2 encoder": (8, 1024, 1024, 16, 16, 64, False, 0),
+    "seamless-m4t-large-v2 decoder self": (8, 1024, 1024, 16, 16, 64, True, 0),
+    "seamless-m4t-large-v2 cross": (8, 1024, 1024, 16, 16, 64, False, 0),
+    "cross S 128, T 1024": (8, 128, 1024, 16, 16, 64, False, 0),
+}
 SERVE = dict(batch=8, prompt=1024, new=32)
-SERVE_MODELS = ("smollm-135m", "mamba2-130m", "recurrentgemma-2b")
+# moonshot-v1-16b-a3b last: its 56.1 GB of bf16 weights need the card to itself
+SERVE_MODELS = ("smollm-135m", "mamba2-130m", "recurrentgemma-2b", "qwen2-vl-2b",
+                "seamless-m4t-large-v2", "moonshot-v1-16b-a3b")
 CHECK = dict(batch=2, prompt=128, steps=4, rel_tol=1e-3)
+# Phase 11 cuts moonshot-v1-16b-a3b to 2 of its 48 layers at full width:
+# 112 GB of float32 weights fit neither the card nor the host.
+CHECK_LAYERS = {"moonshot-v1-16b-a3b": 2}
+# The vision stub's patch grid: 16 x 16 = VLM_PATCHES patches in phase 10,
+# 8 x 8 in phase 11's 128-position prompts.
+SERVE_GRID, CHECK_GRID = 16, 8
+# launch.schedule's flags: its module docstring's (the JAX package's too),
+# and tests/test_cli.py's.
+SCHEDULE_ARGV = {
+    "docstring": ["--slices", "4", "--slice-chips", "64", "--t-slr", "3600", "--t-cfg", "45",
+                  "--job", "yi-34b:train_4k:1800:900",
+                  "--job", "smollm-135m:decode_32k:600:5000"],
+    "test_cli": ["--slices", "4", "--slice-chips", "64", "--t-slr", "3600", "--t-cfg", "45",
+                 "--job", "yi-34b:train_4k:1800:250",
+                 "--job", "smollm-135m:decode_32k:600:5000"],
+}
 
 
 def _card() -> str:
@@ -883,6 +937,94 @@ def phase_options_many(engine: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _stdout(main, argv) -> tuple[int, str]:
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def _fleet_jobs(steps: tuple[int, int, int], order: tuple[str, ...]):
+    """ML jobs as examples/quickstart.py and tests/test_scheduler_fleet.py
+    build them: yi-34b training (3600 s), mamba2-130m training (1800 s) and
+    smollm-135m decoding (600 s), in ``order``, with ``steps`` steps a
+    period."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core.variants import JobSpec
+
+    spec = {"yi-34b": ("train_4k", 3600), "mamba2-130m": ("train_4k", 1800),
+            "smollm-135m": ("decode_32k", 600)}
+    return [JobSpec(cfg=get_arch(a), shape=get_shape(spec[a][0]), period_s=spec[a][1],
+                    steps_per_period=n) for a, n in zip(order, steps, strict=True)]
+
+
+def phase_fleet() -> dict:
+    """Fleet planning on engine="cuda" (kernel 1), each plan and output
+    equal to the plain engine's: ``launch.schedule.main`` with its
+    docstring's flags (infeasible: no slice holds yi-34b's 900 steps) and
+    tests/test_cli.py's; ``plan_fleet`` on examples/quickstart.py's three
+    jobs and on tests/test_scheduler_fleet.py's feasible and infeasible
+    cases; Example 1 on make_hetero_fleet's FPGA + GPU + CPU fleet
+    (examples/hetero_fleet.py).  The launch counts are zeroed around each
+    run on the card; a feasible plan must have launched kernel 1."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.configs.paper_examples import example1_tasks
+    from repro_torch.core import FleetSpec, PADPSFRScheduler
+    from repro_torch.core.variants import JobSpec, make_hetero_fleet
+    from repro_torch.launch import schedule
+
+    def check(what, counts, feasible):
+        if counts["placement_sweep_batch"] or (feasible and counts["placement_sweep"] <= 0):
+            raise AssertionError(f"fleet planning {what}: launches {counts}; a feasible plan "
+                                 f"must launch placement_sweep, none placement_sweep_batch")
+        launches[what] = counts["placement_sweep"]
+
+    launches, rec = {}, {}
+    for what, argv in SCHEDULE_ARGV.items():
+        got, counts = _counted(lambda: _stdout(schedule.main, argv))
+        want = _stdout(schedule.main, [*argv, "--engine", "torch"])
+        if got != want:
+            raise AssertionError(f"launch.schedule {what}: the card's output differs from the "
+                                 f"plain engine's:\n{got[1]}\n---\n{want[1]}")
+        check(f"cli_{what}", counts, got[0] == 0)
+        rec[f"cli_{what}"] = {"rc": got[0], "summary": got[1].splitlines()[-1] if got[0]
+                              else next(ln for ln in got[1].splitlines() if "chosen-rank" in ln)}
+    tight = [JobSpec(cfg=get_arch("yi-34b"), shape=get_shape("train_4k"), period_s=10.0,
+                     steps_per_period=100000)]
+    for what, jobs, fleet, opts in (
+        ("quickstart", _fleet_jobs((500, 2000, 4000), ("yi-34b", "mamba2-130m", "smollm-135m")),
+         FleetSpec(n_f=4, t_slr=3600.0, t_cfg=45.0, name="v5e-fleet"), (16, 32, 64)),
+        ("test_scheduler_fleet", _fleet_jobs((600, 3000, 2000),
+                                             ("yi-34b", "smollm-135m", "mamba2-130m")),
+         FleetSpec(n_f=4, t_slr=3600.0, t_cfg=45.0), (16, 32, 64)),
+        ("test_scheduler_fleet_infeasible", tight, FleetSpec(n_f=2, t_slr=10.0, t_cfg=1.0),
+         (64, 128)),
+    ):
+        (tasks, got), counts = _counted(lambda: schedule.plan_fleet(jobs, fleet, opts))
+        _, want = schedule.plan_fleet(jobs, fleet, opts, engine="torch")
+        _same_result(got, want, f"plan_fleet {what}")
+        check(what, counts, got.feasible)
+        rec[what] = {"feasible": got.feasible, "rank": got.chosen_rank,
+                     "power_w": got.total_power, "n_tfs": got.n_tfs,
+                     "combo": list(got.combo.variant_idx) if got.feasible else None}
+    if not rec["quickstart"]["feasible"] or rec["test_scheduler_fleet_infeasible"]["feasible"]:
+        raise AssertionError(f"fleet planning: feasibility {rec}")
+    fleet = make_hetero_fleet({"fpga": 2, "gpu": 1, "cpu": 1}, t_slr=60.0, name="fpga+gpu+cpu")
+    got, counts = _counted(lambda: PADPSFRScheduler(fleet).schedule(
+        example1_tasks(), count_all_rejects=True))
+    want = PADPSFRScheduler(fleet, engine="torch").schedule(example1_tasks(),
+                                                            count_all_rejects=True)
+    _same_result(got, want, "Example 1 on the FPGA + GPU + CPU fleet")
+    check("hetero_example1", counts, got.feasible)
+    rec["hetero_example1"] = {"summary": got.summary(), "feasible": got.feasible}
+    rec["launches"] = launches
+    print("[fleet] " + json.dumps(rec), flush=True)
+    return rec
+
+
 def arrival_task():
     """bench_replan's light arrival (benchmarks/scheduler_scale.py)."""
     from repro_torch.core import Task, TaskVariant
@@ -1271,31 +1413,33 @@ def _attn_inputs(case, dtype, device, seed):
 
 
 def _time_attention(case, device, seed: int) -> dict:
-    """flash_attention at a causal prefill shape (S == T) in bf16: checked
-    against the plain version, then timed beside it and beside
-    scaled_dot_product_attention (the yardstick; the port never calls it),
-    whose ``is_causal`` is exact only where the window does not bind."""
+    """flash_attention at a prefill shape in bf16, causal (S == T) or
+    without a mask: checked against the plain version, then timed beside it
+    and beside scaled_dot_product_attention (the yardstick; the port never
+    calls it), whose ``is_causal`` is exact only where the window does not
+    bind."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 
-    B, S, T, H, K, hd, _, window = case
-    if S != T or 0 < window < S:
+    B, S, T, H, K, hd, causal, window = case
+    if (causal and S != T) or 0 < window < S:
         raise ValueError(f"{case}: SDPA's is_causal is not this attention")
     q, k, v = _attn_inputs(case, torch.bfloat16, device, seed)
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     got = flash_attention_cuda(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     err = _err(got, want, ML_TOL["bfloat16"], f"flash_attention {case}")
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))  # SDPA's (B, heads, S, hd) views
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
     lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
     ms = _events_ms(lambda: flash_attention_cuda(q, k, v, **kw), ML_REPS)
     plain_ms = _events_ms(lambda: flash_attention_plain(q, k, v, **kw), ML_REPS)
     library_ms = _events_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), ML_REPS)
-    visible = S * (S + 1) // 2  # causal, S == T, no binding window: query i sees keys 0..i
+        qt, kt, vt, is_causal=causal, enable_gqa=True), ML_REPS)
+    # causal, S == T, no binding window: query i sees keys 0..i; else all T
+    visible = S * (S + 1) // 2 if causal else S * T
     n_bytes = 2 * (2 * B * S * H * hd + 2 * B * T * K * hd)  # q, o, k, v in bf16
     n_ops = 4 * B * H * hd * visible
     return {"shape": dict(zip(("B", "S", "T", "H", "K", "hd", "causal", "window"), case,
@@ -1347,6 +1491,29 @@ def phase_flash_vs_plain(device) -> dict:
               f"SDPA {r['library_ms']:.4f} ms (the kernel takes {r['kernel_over_sdpa']:.2f}x)",
               flush=True)
     return rec
+
+
+def phase_flash_new_shapes(device) -> dict:
+    """flash_attention (tensor cores) at the MoE, VLM and enc-dec models'
+    prefill shapes (NEW_ATTN): hd 128 at GQA groups 1 and 6, hd 64 without
+    a mask, and a cross-attention with S != T; each held against the plain
+    version, timed beside it and beside SDPA, all on the tensor-core
+    kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    recs = {}
+    for i, (what, case) in enumerate(NEW_ATTN.items()):
+        mma_before = flash_attention_cuda.mma_launches
+        recs[what] = r = _time_attention(case, device, 80 + i)
+        if flash_attention_cuda.mma_launches == mma_before:
+            raise AssertionError(f"flash_attention at {what}: no tensor-core launch")
+        print(f"[kernel] flash_attention (tensor cores) at {what} {case}: {r['ms']:.4f} ms, "
+              f"{r['tflops']:.1f} TFLOP/s, max abs err {r['max_abs_err']:.3g}; bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain {r['plain_ms']:.4f} ms; SDPA "
+              f"{r['library_ms']:.4f} ms (the kernel takes {r['kernel_over_sdpa']:.2f}x)",
+              flush=True)
+    print("[kernel] " + json.dumps({"flash_attention_new_shapes": recs}), flush=True)
+    return recs
 
 
 def _ssd_inputs(case, dtype, device, seed):
@@ -1529,23 +1696,54 @@ KERNEL_SYMBOLS = {
 }
 
 
+def _routed(run):
+    """Run ``run()`` recording each MoE layer's top-k experts, a (B, S, k)
+    tensor sorted along k, in call order; returns (result, routes)."""
+    from repro_torch.models import layers, transformer
+
+    routes = []
+    real = transformer.moe_layer
+
+    def spy(x, router, *w, top_k, capacity_factor):
+        out, probs = real(x, router, *w, top_k=top_k, capacity_factor=capacity_factor)
+        routes.append(layers._top_k(probs, top_k)[1].sort(dim=-1).values.cpu())
+        return out, probs
+
+    transformer.moe_layer = spy
+    try:
+        return run(), routes
+    finally:
+        transformer.moe_layer = real
+
+
+def _route_diff(got: list, want: list) -> dict:
+    """Tokens whose top-k expert set differs between two runs' routes, over
+    every MoE layer, and the first layer where one does (-1: none)."""
+    differ = [int((g != w).any(-1).sum()) for g, w in zip(got, want, strict=True)]
+    return {"route_tokens_differ": sum(differ),
+            "route_tokens": sum(int(g[..., 0].numel()) for g in got),
+            "first_layer_differing": next((i for i, d in enumerate(differ) if d), -1)}
+
+
 def _prefill_vs_plain(model, batch) -> dict:
     """The prefill's last logits through the kernels and, on the same card,
     through their plain versions: max |difference| beside max |logit|, the
     rows whose argmax agrees, and the plain logits' top-2 margin on the rows
-    that differ.  bf16 rounds at other places in the two, so a near tie can
-    flip a greedy token; phase 11 holds the logits strictly, at float32."""
+    that differ; for an MoE model also the tokens routed to another expert
+    set.  bf16 rounds at other places in the two, so a near tie can flip a
+    greedy token or a route; phase 11 holds the logits strictly, at
+    float32."""
     import torch
 
     from repro_torch.kernels import ops
 
-    got, _ = model.prefill(batch)
+    (got, _), got_routes = _routed(lambda: model.prefill(batch))
     names = ("flash_attention", "ssd_scan", "rglru_scan")
     saved = {n: getattr(ops, f"{n}_cuda") for n in names}
     try:
         for n in names:
             setattr(ops, f"{n}_cuda", getattr(ops, f"{n}_plain"))
-        want, _ = model.prefill(batch)
+        (want, _), want_routes = _routed(lambda: model.prefill(batch))
     finally:
         for n, fn in saved.items():
             setattr(ops, f"{n}_cuda", fn)
@@ -1553,17 +1751,59 @@ def _prefill_vs_plain(model, batch) -> dict:
     agree = g.argmax(-1) == w.argmax(-1)
     top2 = torch.topk(w, 2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1])[~agree]
-    return {"max_abs_diff": float((g - w).abs().max()), "max_abs_logit": float(w.abs().max()),
-            "argmax_agree_rows": int(agree.sum()), "rows": int(agree.numel()),
-            "plain_top2_margin_where_differs": margin.tolist()}
+    rec = {"max_abs_diff": float((g - w).abs().max()), "max_abs_logit": float(w.abs().max()),
+           "argmax_agree_rows": int(agree.sum()), "rows": int(agree.numel()),
+           "plain_top2_margin_where_differs": margin.tolist()}
+    if got_routes:
+        rec.update(_route_diff(got_routes, want_routes))
+    return rec
 
 
 def _expected_launches(cfg) -> dict:
-    """A prefill's kernel launches: one a layer, by the layer's kind."""
+    """A prefill's kernel launches: one a layer, by the layer's kind; an
+    enc-dec model's one an encoder layer (its self-attention) and two a
+    decoder layer (self- and cross-attention)."""
     kinds = cfg.layer_kinds()
     want = {"flash_attention": kinds.count("attn"), "ssd_scan": kinds.count("ssm"),
             "rglru_scan": kinds.count("rec")}
+    if cfg.family == "encdec":
+        want["flash_attention"] += cfg.enc_layers + cfg.n_layers
     return {k: n for k, n in want.items() if n}
+
+
+def _mrope_positions(B: int, grid: int, n_text: int) -> np.ndarray:
+    """Qwen2-VL's position ids for a grid x grid patch prefix, then text:
+    patch (r, c) at (t, h, w) = (0, r, c), text token i at grid + i in all
+    three streams."""
+    r, c = np.divmod(np.arange(grid * grid), grid)
+    patches = np.stack([np.zeros_like(r), r, c], axis=-1)
+    text = np.repeat((grid + np.arange(n_text))[:, None], 3, axis=1)
+    return np.ascontiguousarray(
+        np.broadcast_to(np.concatenate([patches, text])[None], (B, grid * grid + n_text, 3)))
+
+
+def _serve_batch(cfg, B: int, S: int, seed: int, grid: int) -> dict:
+    """A prompt batch of S positions for the model's family, CPU tensors:
+    token ids; a vision model's prefix of grid x grid patch embeddings and
+    its 3-D positions; an enc-dec model's S frame embeddings (the stub
+    frontends' inputs)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_tok = S - grid * grid if cfg.family == "vlm" else S
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, n_tok)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, grid * grid, cfg.d_model)).astype(np.float32))
+        batch["positions"] = torch.from_numpy(_mrope_positions(B, grid, n_tok).astype(np.int32))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, S, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _on(batch: dict, device) -> dict:
+    return {k: v.to(device) for k, v in batch.items()}
 
 
 def phase_serve(name: str, device) -> dict:
@@ -1580,11 +1820,13 @@ def phase_serve(name: str, device) -> dict:
     cfg = get_arch(name)
     want = _expected_launches(cfg)
     B, S, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    gc.collect()  # the earlier models' weights go before this one's come
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(device) / 1e9
     model = Model(cfg, generator=torch.Generator(device).manual_seed(0), device=device,
                   dtype=getattr(torch, cfg.dtype))
     engine = ServeEngine(model, ServeConfig(max_len=S + new))
-    batch = {"tokens": torch.from_numpy(
-        np.random.default_rng(13).integers(0, cfg.vocab, (B, S)).astype(np.int32)).to(device)}
+    batch = _on(_serve_batch(cfg, B, S, 13, SERVE_GRID), device)
     engine.generate(batch, 2)  # first use: cuBLAS handles, the kernels' first launch
     torch.cuda.synchronize()
 
@@ -1626,8 +1868,11 @@ def phase_serve(name: str, device) -> dict:
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / (new - 1)
     rec = {
-        "model": name, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+        "model": name, "layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+        "d_model": cfg.d_model, "vocab": cfg.vocab,
         "dtype": cfg.dtype, "params": model.n_params(), "batch": B, "prompt": S, "new": new,
+        "batch_keys": sorted(batch), "card_gb_held_before": held_gb,
+        "card_gb_peak": torch.cuda.max_memory_allocated(device) / 1e9,
         "generate_s": gen_s, "tokens_per_s": B * new / gen_s,
         "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
         "launches": counts, "first_row": out[0, :8].tolist(),
@@ -1653,30 +1898,37 @@ def phase_serve_check(name: str, device) -> dict:
     from repro_torch.models import Model
     from repro_torch.serve.engine import _pad_cache_to
 
-    cfg = dataclasses.replace(get_arch(name), dtype="float32")
+    full = get_arch(name)
+    cfg = dataclasses.replace(full, dtype="float32",
+                              n_layers=CHECK_LAYERS.get(name, full.n_layers))
     B, S, steps = CHECK["batch"], CHECK["prompt"], CHECK["steps"]
+    gc.collect()
+    torch.cuda.empty_cache()
     gpu = Model(cfg, generator=torch.Generator(device).manual_seed(1), device=device)
     cpu = Model(cfg, params=_cpu_tree(gpu.params), device="cpu")
-    tok = torch.from_numpy(
-        np.random.default_rng(21).integers(0, cfg.vocab, (B, S)).astype(np.int32))
-    (g_last, g_state), counts = _counted(lambda: gpu.prefill({"tokens": tok.to(device)}))
-    kinds = cfg.layer_kinds()
+    batch = _serve_batch(cfg, B, S, 21, CHECK_GRID)
+    ((g_last, g_state), g_routes), counts = _counted(
+        lambda: _routed(lambda: gpu.prefill(_on(batch, device))))
+    want = _expected_launches(cfg)
     if (counts["flash_attention_mma"] or counts["ssd_scan_mma"]
-            or counts["flash_attention"] != kinds.count("attn")
-            or counts["ssd_scan"] != kinds.count("ssm")):
-        raise AssertionError(f"serve check {name}: float32 prefill launches {counts}; want one "
-                             f"CUDA-core flash or SSD launch a layer of its kind, none on "
-                             f"tensor cores")
-    c_last, c_state = cpu.prefill({"tokens": tok})
+            or counts["flash_attention"] != want.get("flash_attention", 0)
+            or counts["ssd_scan"] != want.get("ssd_scan", 0)):
+        raise AssertionError(f"serve check {name}: float32 prefill launches {counts}; want "
+                             f"{want} on the CUDA-core flash and SSD kernels, none on tensor "
+                             f"cores")
+    (c_last, c_state), c_routes = _routed(lambda: cpu.prefill(batch))
+    routes = [(g_routes, c_routes)]
     g_state = _pad_cache_to(g_state, cfg.family, S + steps)
     c_state = _pad_cache_to(c_state, cfg.family, S + steps)
     errs, scales = [], []
     pairs = [(g_last, c_last)]
     step = torch.argmax(c_last, dim=-1).to(torch.int32)
     for t in range(steps):
-        g_log, g_state = gpu.decode_step(g_state, step.to(device), S + t)
-        c_log, c_state = cpu.decode_step(c_state, step, S + t)
+        (g_log, g_state), g_routes = _routed(
+            lambda: gpu.decode_step(g_state, step.to(device), S + t))
+        (c_log, c_state), c_routes = _routed(lambda: cpu.decode_step(c_state, step, S + t))
         pairs.append((g_log, c_log))
+        routes.append((g_routes, c_routes))
         step = torch.argmax(c_log, dim=-1).to(torch.int32)
     for g, c in pairs:
         g = g.float().cpu()
@@ -1685,10 +1937,13 @@ def phase_serve_check(name: str, device) -> dict:
         if not bool(torch.isfinite(g).all()) or errs[-1] > CHECK["rel_tol"] * scales[-1]:
             raise AssertionError(f"serve check {name}: card vs CPU logits differ by {errs[-1]} "
                                  f"(max |logit| {scales[-1]}, tolerance {CHECK['rel_tol']} of it)")
-    rec = {"model": name, "layers": cfg.n_layers, "dtype": "float32", "batch": B, "prompt": S,
-           "decode_steps": steps,
+    rec = {"model": name, "layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+           "dtype": "float32", "batch": B, "prompt": S, "decode_steps": steps,
+           "batch_keys": sorted(batch),
            "max_abs_err": max(errs), "max_abs_err_by_step": errs, "max_abs_logit": max(scales),
            "rel_tol": CHECK["rel_tol"]}
+    if cfg.family == "moe":  # the card's routes against the CPU's, prefill then each step
+        rec["routes_card_vs_cpu"] = [_route_diff(g, c) for g, c in routes]
     print("[serve-check] " + json.dumps(rec), flush=True)
     del gpu, cpu, g_state, c_state
     torch.cuda.empty_cache()
@@ -1710,6 +1965,7 @@ def main() -> int:
     timing = phase_kernel_vs_plain(device)
     timing_batch = phase_batch_kernel_vs_plain(device)
     timing_flash = phase_flash_vs_plain(device)
+    phase_flash_new_shapes(device)
     timing_ssd = phase_ssd_vs_plain(device)
     timing_rglru = phase_rglru_vs_plain(device)
 
@@ -1731,6 +1987,11 @@ def main() -> int:
     }
     print(f"[launches] placement_sweep_batch per schedule_many phase: "
           f"{json.dumps(many_launches)}", flush=True)
+
+    # phase 13: fleet planning (launch.schedule, variants) on kernel 1
+    fleet_launches = phase_fleet()["launches"]
+    print(f"[launches] placement_sweep per fleet-planning run: {json.dumps(fleet_launches)}",
+          flush=True)
 
     # phase 12: the service path; kernel 1 in the warm replans, the trace's
     # service calls and fault injection, kernel 2 in what_if_many
@@ -1770,7 +2031,7 @@ def main() -> int:
     kernels = []
     for name, replaces, rec, n in (
         ("placement_sweep", "src/repro/kernels/placement_step.py:136", timing,
-         sum(launches.values())
+         sum(launches.values()) + sum(fleet_launches.values())
          + sum(v for k, v in service_launches.items() if k != "what_if_many")),
         ("placement_sweep_batch", "src/repro/kernels/placement_step.py:267", timing_batch,
          sum(many_launches.values()) + service_launches["what_if_many"]),

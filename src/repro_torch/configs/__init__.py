@@ -1,13 +1,15 @@
 """Config registry (the assigned architectures) and the paper's task sets.
 
 ``base`` holds the :class:`ModelConfig` schema and the registry; the arch
-modules below register themselves on import.  ``paper_examples`` holds the
-paper's worked examples (Tables I/II, Examples 1-3).
+modules below register themselves on import.  ``shapes`` holds the
+assigned input shapes and which arch x shape cells run; ``paper_examples``
+holds the paper's worked examples (Tables I/II, Examples 1-3).
 """
 
 from __future__ import annotations
 
 from .base import ARCH_REGISTRY, ModelConfig, MoESpec, get_arch, list_archs, register_arch
+from .shapes import SHAPES, InputShape, get_shape
 
 # Import for registration side effects.
 from . import (  # noqa: F401  isort: skip
@@ -23,4 +25,14 @@ from . import (  # noqa: F401  isort: skip
     recurrentgemma_2b,
 )
 
-__all__ = ["ARCH_REGISTRY", "ModelConfig", "MoESpec", "get_arch", "list_archs", "register_arch"]
+__all__ = [
+    "ARCH_REGISTRY",
+    "ModelConfig",
+    "MoESpec",
+    "get_arch",
+    "list_archs",
+    "register_arch",
+    "SHAPES",
+    "InputShape",
+    "get_shape",
+]

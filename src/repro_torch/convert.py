@@ -12,10 +12,12 @@ bit-identical.
 
 ``params_from`` / ``state_from`` turn the JAX package's parameter tree and
 decode state, handed over as numpy arrays (``jax.tree.map(np.asarray,
-params)``; a KV cache is a ``(k, v)`` pair, an SSM or hybrid state a
-dict), into
-torch tensors with the same names and structure, so the port can run on
-the reference's weights and continue from its prefill.  A bfloat16 array
+params)``; a KV cache is a ``(k, v)`` pair, an enc-dec cache a dict of
+two such pairs, an SSM or hybrid state a dict), into torch tensors with
+the same names and structure, every family's (the MoE blocks' router and
+expert stacks, the enc-dec model's ``enc_blocks`` / ``dec_blocks``), so
+the port can run on the reference's weights and continue from its
+prefill.  A bfloat16 array
 (the ``ml_dtypes`` type that jax hands to numpy) keeps its bits.
 """
 
@@ -110,7 +112,8 @@ def params_from(tree: dict, device: torch.device | str, dtype: torch.dtype | Non
 def state_from(state: Any, device: torch.device | str) -> Any:
     """A decode state of numpy arrays -> the same structure of tensors on
     ``device``, types kept.  The structure is a transformer's ``(k, v)``
-    cache of ``(L, B, T, K, hd)``, an SSM's dict of ``conv_x`` / ``conv_B``
+    cache of ``(L, B, T, K, hd)`` (dense, MoE and VLM), an enc-dec model's
+    ``{"self": (k, v), "cross": (k, v)}``, an SSM's dict of ``conv_x`` / ``conv_B``
     / ``conv_C`` / ``ssm``, or a hybrid's nested dict
     ``{"super": {"0": {"conv", "h"}, "1": ..., "2": {"ck", "cv"}}, "rest":
     {...}}`` (each leaf stacked ``(n_super, ...)`` under ``super`` and

@@ -5,9 +5,10 @@
 
 The flags are the JAX package's ``launch/serve.py``'s, plus ``--device``:
 ``cuda`` (the default) runs the kernels on the card and raises without
-one; ``cpu`` runs their plain versions.  The ``dense`` (smollm-135m), ``ssm``
-(mamba2-130m) and ``hybrid`` (recurrentgemma-2b) families are ported; any
-other ``--arch`` raises ``NotImplementedError``.
+one; ``cpu`` runs their plain versions.  Every registered ``--arch`` is
+served at its reduced width.  The stub frontends get the JAX package's
+inputs: an enc-dec model ``prompt-len`` random frame embeddings, a vision
+model 8 random patch embeddings in place of its first 8 prompt tokens.
 """
 
 from __future__ import annotations
@@ -44,6 +45,15 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     B, S = args.batch, args.prompt_len
     batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        P = 8
+        batch = {
+            "tokens": batch["tokens"][:, : S - P],
+            "patch_embeds": rng.standard_normal((B, P, cfg.d_model)).astype(np.float32),
+            "positions": np.broadcast_to(np.arange(S)[None, :, None], (B, S, 3)).astype(np.int32),
+        }
 
     engine = ServeEngine(
         model, ServeConfig(max_len=S + args.new_tokens, temperature=args.temperature)

@@ -1,8 +1,9 @@
-"""Model zoo of the port: the dense GQA transformer (smollm-135m), Mamba-2
-SSD (mamba2-130m) and Griffin hybrid (recurrentgemma-2b) families,
-layer-stacked parameters under the JAX package's names, run by Python
-loops over layers.  The other families are not ported yet (ROADMAP queue
-1, item 8)."""
+"""Model zoo of the port, every assigned family: the GQA transformer, dense
+(smollm-135m, yi-34b, ...), MoE (moonshot-v1-16b-a3b, dbrx-132b) and VLM
+with M-RoPE (qwen2-vl-2b); Mamba-2 SSD (mamba2-130m); the Griffin hybrid
+(recurrentgemma-2b); and the encoder-decoder (seamless-m4t-large-v2).
+Layer-stacked parameters under the JAX package's names, run by Python
+loops over layers."""
 
 from .model import ExecConfig, Model
 from .params import ParamSpec, init_params, map_specs, param_count

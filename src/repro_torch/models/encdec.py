@@ -1,0 +1,204 @@
+"""Encoder-decoder backbone (seamless-m4t-large-v2's text/audio backbone).
+
+The audio frontend is a stub, as in the JAX package: the batch carries
+precomputed frame embeddings ``enc_embeds`` (B, S_enc, D) straight into
+the encoder.  Decoder layers add cross-attention over the encoder output;
+decode keeps a growing self-attention KV cache and the fixed cross K/V
+computed at the prefill.
+
+Full-sequence attention goes through ``kernels.ops.flash_attention``: the
+encoder's self-attention and the decoder's cross-attention without a mask,
+the decoder's self-attention causally.  Decode (one query) runs
+``layers.chunked_attention``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from .layers import apply_rope, rms_norm, swiglu
+from .params import ParamSpec
+from .transformer import ExecConfig, _layer, attn_specs, mlp_specs
+
+__all__ = [
+    "encdec_specs",
+    "encdec_forward",
+    "encode",
+    "encdec_decode_step",
+    "init_encdec_cache",
+]
+
+
+def enc_block_specs(cfg: ModelConfig, L: int) -> dict[str, Any]:
+    return {
+        "ln1": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="zeros"),
+        "attn": attn_specs(cfg, L),
+        "ln2": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="zeros"),
+        "mlp": mlp_specs(cfg, L),
+    }
+
+
+def dec_block_specs(cfg: ModelConfig, L: int) -> dict[str, Any]:
+    s = enc_block_specs(cfg, L)
+    s["ln_x"] = ParamSpec((L, cfg.d_model), ("layers", "embed"), init="zeros")
+    s["xattn"] = attn_specs(cfg, L)
+    return s
+
+
+def encdec_specs(cfg: ModelConfig) -> dict[str, Any]:
+    return {
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), init="embed"),
+        "enc_blocks": enc_block_specs(cfg, cfg.enc_layers),
+        "enc_ln": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+        "dec_blocks": dec_block_specs(cfg, cfg.n_layers),
+        "final_ln": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+        "lm_head": ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab")),
+    }
+
+
+def _proj(hn: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bsd,dhk->bshk", hn, w.to(hn.dtype))
+
+
+def _proj_qkv(cfg: ModelConfig, a: dict, hn: torch.Tensor, pos: torch.Tensor):
+    q, k, v = _proj(hn, a["wq"]), _proj(hn, a["wk"]), _proj(hn, a["wv"])
+    if cfg.rope == "rope":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", o, wo.to(o.dtype))
+
+
+def _positions(h: torch.Tensor, start: int = 0) -> torch.Tensor:
+    B, S = h.shape[0], h.shape[1]
+    return (start + torch.arange(S, device=h.device))[None, :].expand(B, S)
+
+
+def _attend(ex: ExecConfig, q, k, v, *, causal: bool) -> torch.Tensor:
+    """Full-sequence attention (the flash kernel on the card); one query
+    scores all T keys at once, as the JAX package's decode does."""
+    T = k.shape[1]
+    return ops.flash_attention(q, k, v, q_offset=0, causal=causal, window=0,
+                               kv_chunk=T if q.shape[1] == 1 else min(ex.kv_chunk, T),
+                               p_dtype=ex.attn_p_dtype)
+
+
+def encode(cfg: ModelConfig, ex: ExecConfig, params: dict, enc_embeds: torch.Tensor):
+    """Bidirectional encoder over precomputed frame embeddings."""
+    h = enc_embeds.to(getattr(torch, cfg.dtype))
+    pos = _positions(h)
+    for i in range(cfg.enc_layers):
+        p = _layer(params["enc_blocks"], i)
+        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+        q, k, v = _proj_qkv(cfg, p["attn"], hn, pos)
+        h = h + _out(_attend(ex, q, k, v, causal=False), p["attn"]["wo"])
+        hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
+        h = h + swiglu(hn2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return rms_norm(h, params["enc_ln"], cfg.norm_eps)
+
+
+def _dec_block(cfg, ex, p, h, enc_out, pos, *, self_cache, cache_idx):
+    """One decoder layer.  ``enc_out`` is the encoder output (prefill) or
+    this layer's precomputed cross ``(k, v)`` (decode).  With ``self_cache``
+    (one layer's ``(B, T, K, hd)`` pair) the step's k and v are written into
+    it in place at ``cache_idx``.  Returns (h, self (k, v), cross (k, v))."""
+    # --- causal self-attention ---
+    hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+    q, k, v = _proj_qkv(cfg, p["attn"], hn, pos)
+    if self_cache is None:
+        out = _attend(ex, q, k, v, causal=True)
+        new_self = (k, v)
+    else:
+        ck, cv = self_cache
+        S, T = q.shape[1], ck.shape[1]
+        ck[:, cache_idx : cache_idx + S] = k.to(ck.dtype)
+        cv[:, cache_idx : cache_idx + S] = v.to(cv.dtype)
+        out = ops.flash_attention(
+            q, ck.to(q.dtype), cv.to(q.dtype), q_offset=cache_idx, kv_len=cache_idx + S,
+            causal=True, window=0, kv_chunk=T if S == 1 else min(ex.kv_chunk, T),
+            p_dtype=ex.attn_p_dtype,
+        )
+        new_self = (ck, cv)
+    h = h + _out(out, p["attn"]["wo"])
+
+    # --- cross-attention ---
+    hn = rms_norm(h, p["ln_x"], cfg.norm_eps)
+    xa = p["xattn"]
+    qx = _proj(hn, xa["wq"])
+    if isinstance(enc_out, tuple):  # precomputed cross K/V (decode)
+        kx, vx = (t.to(h.dtype) for t in enc_out)
+    else:
+        kx, vx = _proj(enc_out, xa["wk"]), _proj(enc_out, xa["wv"])
+    h = h + _out(_attend(ex, qx, kx, vx, causal=False), xa["wo"])
+
+    # --- MLP ---
+    hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
+    h = h + swiglu(hn2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return h, new_self, (kx, vx)
+
+
+def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", h, params["lm_head"].to(h.dtype))
+
+
+def encdec_forward(
+    cfg: ModelConfig,
+    ex: ExecConfig,
+    params: dict,
+    batch: dict,
+    *,
+    return_cache: bool = False,
+):
+    """Teacher-forced forward.  batch: enc_embeds (B, S_enc, D), tokens
+    (B, S_dec).  Returns (logits, aux_loss) or (logits, aux_loss, cache);
+    the cache is ``{"self": (k, v), "cross": (k, v)}``, each stacked over
+    the decoder layers, ``(L, B, S_dec, K, hd)`` and ``(L, B, S_enc, K, hd)``."""
+    enc_out = encode(cfg, ex, params, batch["enc_embeds"])
+    h = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
+    pos = _positions(h)
+    kept: list[tuple] = []
+    for i in range(cfg.n_layers):
+        h, new_self, new_cross = _dec_block(cfg, ex, _layer(params["dec_blocks"], i), h, enc_out,
+                                            pos, self_cache=None, cache_idx=None)
+        if return_cache:
+            kept.append((*new_self, *new_cross))
+    logits = _head(cfg, params, h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if return_cache:
+        sk, sv, xk, xv = (torch.stack(t) for t in zip(*kept, strict=True))
+        return logits, aux, {"self": (sk, sv), "cross": (xk, xv)}
+    return logits, aux
+
+
+def init_encdec_cache(cfg: ModelConfig, batch_size: int, max_len: int, enc_len: int, dtype=None,
+                      device=None):
+    """Zero self-attention cache of ``max_len`` and cross cache of
+    ``enc_len`` positions, each ``(L, B, T, K, hd)`` x2."""
+    dt = dtype or getattr(torch, cfg.dtype)
+    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def zeros(T):
+        return torch.zeros((L, batch_size, T, K, hd), dtype=dt, device=device)
+
+    return {"self": (zeros(max_len), zeros(max_len)), "cross": (zeros(enc_len), zeros(enc_len))}
+
+
+def encdec_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, cache, tokens, idx: int):
+    """One decoder token with cached self and cross attention: the token's
+    self K/V is written at ``idx`` of every layer's cache, in place.
+    Returns (logits, cache)."""
+    h = params["embed"][tokens[:, None]].to(getattr(torch, cfg.dtype))
+    pos = _positions(h, idx)
+    (sk, sv), (xk, xv) = cache["self"], cache["cross"]
+    for i in range(cfg.n_layers):
+        h, _, _ = _dec_block(cfg, ex, _layer(params["dec_blocks"], i), h, (xk[i], xv[i]), pos,
+                             self_cache=(sk[i], sv[i]), cache_idx=idx)
+    return _head(cfg, params, h)[:, 0], cache

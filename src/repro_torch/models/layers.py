@@ -1,4 +1,4 @@
-"""Shared neural layers: RMS norm, rotary embeddings, attention, SwiGLU.
+"""Shared neural layers: RMS norm, rotary embeddings, attention, SwiGLU, MoE.
 
 Functions over tensors; parameters arrive as (sub)trees of the spec
 functions in the sibling model files.  The cast points are the JAX
@@ -7,7 +7,9 @@ in the activations' type (``cfg.dtype``).
 
 ``chunked_attention`` is the online-softmax attention in plain torch ops,
 used for decode (one query against a cache with a runtime fill) and by
-``ops.flash_attention`` wherever the flash kernel does not apply.
+``ops.flash_attention`` wherever the flash kernel does not apply.  The
+MoE layer's expert products are batched matrix products (cuBLAS on the
+card), as the JAX package runs them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +19,16 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "make_rope_freqs", "apply_rope", "chunked_attention", "swiglu"]
+__all__ = [
+    "rms_norm",
+    "make_rope_freqs",
+    "apply_rope",
+    "apply_mrope",
+    "chunked_attention",
+    "swiglu",
+    "moe_layer",
+    "moe_aux_loss",
+]
 
 _NEG_INF = -1e30
 
@@ -29,7 +40,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (RoPE and Qwen2-VL's multimodal M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -51,6 +62,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """Standard RoPE.  x: (B, S, H, hd); positions: (B, S) int."""
     freqs = make_rope_freqs(x.shape[-1], theta, device=x.device)
     ang = positions.float()[..., None] * freqs  # (B, S, hd//2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
+def apply_mrope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float, sections: tuple[int, ...]
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  positions: (B, S, 3) = (t, h, w) ids.
+
+    The ``head_dim // 2`` frequency slots are partitioned into ``sections``
+    (e.g. 16/24/24); slot ``i`` rotates by the position stream its section
+    is assigned to.  Text tokens carry t == h == w, reducing exactly to
+    standard RoPE.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"sections {sections} do not cover the {half} frequency slots")
+    freqs = make_rope_freqs(x.shape[-1], theta, device=x.device)  # (half,)
+    pos = positions.float()  # (B, S, 3)
+    ends = [sum(sections[: j + 1]) for j in range(len(sections))]
+    ang = torch.cat([pos[..., j : j + 1] * freqs[end - n : end]  # section j's slots
+                     for j, (n, end) in enumerate(zip(sections, ends, strict=True))],
+                    dim=-1)  # (B, S, half)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     return _rotate(x, cos, sin)
 
@@ -138,3 +172,93 @@ def swiglu(
     u = torch.einsum("bsd,df->bsf", x, w_up.to(dt))
     h = F.silu(g.float()).to(dt) * u
     return torch.einsum("bsf,fd->bsd", h, w_down.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts: sort-based capacity dispatch, one routing group a
+# batch row, into contiguous expert slabs run as batched matrix products
+# ---------------------------------------------------------------------------
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis, largest first and ties to the
+    lower index (``lax.top_k``'s order; ``torch.topk`` leaves ties open)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_layer(
+    x: torch.Tensor,
+    router: torch.Tensor,
+    w_gate: torch.Tensor,
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    *,
+    top_k: int,
+    capacity_factor: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed MoE over groups = batch rows.  x: (B, S, D).
+
+    Returns (out, router_probs (B, S, E)); the probs feed the load-balance
+    loss.  Expert weights: (E, D, F) / (E, F, D).  Each row routes on its
+    own, as the JAX package's per-group routing does: float32 router
+    logits and softmax, the top k renormalised, the (token, slot) pairs
+    flattened token-major and stably sorted by expert, each expert's first
+    ``capacity = ceil(S*k/E*cf)`` pairs kept and the rest dropped (written
+    to a sacrificial slot, their output zero).
+    """
+    B, S, D = x.shape
+    E = router.shape[1]
+    dt, dev = x.dtype, x.device
+    capacity = max(1, int(math.ceil(S * top_k / E * capacity_factor)))
+
+    logits = torch.einsum("bsd,de->bse", x.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)  # (B, S, E)
+    w, idx = _top_k(probs, top_k)  # (B, S, k)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+
+    SK = S * top_k
+    e_flat = idx.reshape(B, SK)  # token-major a row
+    order = torch.argsort(e_flat, dim=1, stable=True)
+    e_s = torch.gather(e_flat, 1, order)
+    t_s = order // top_k  # the token of each sorted pair
+    w_s = torch.gather(w.reshape(B, SK), 1, order)
+
+    counts = torch.zeros((B, E), dtype=torch.long, device=dev)
+    counts.scatter_add_(1, e_flat, torch.ones_like(e_flat))
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos = torch.arange(SK, device=dev)[None] - torch.gather(starts, 1, e_s)
+    keep = pos < capacity
+    pos_c = torch.where(keep, pos, capacity)  # overflow -> sacrificial slot
+
+    b_idx = torch.arange(B, device=dev)[:, None]
+    x_sorted = torch.gather(x, 1, t_s[..., None].expand(B, SK, D))
+    buf = torch.zeros((B, E, capacity + 1, D), dtype=dt, device=dev)
+    buf[b_idx, e_s, pos_c] = x_sorted * keep[..., None].to(dt)
+    # the experts' slabs, every row's stacked: (E, B * capacity, D)
+    slab = buf[:, :, :capacity].transpose(0, 1).reshape(E, B * capacity, D)
+    g = torch.bmm(slab, w_gate.to(dt))
+    u = torch.bmm(slab, w_up.to(dt))
+    h = F.silu(g.float()).to(dt) * u
+    y = torch.bmm(h, w_down.to(dt)).reshape(E, B, capacity, D).transpose(0, 1)
+
+    # back to the pairs (a dropped pair reads slot 0 and is zeroed), then
+    # to token-major order, and each token's k outputs summed
+    y_pair = y[b_idx, e_s, torch.where(keep, pos, 0)] * (keep * w_s)[..., None].to(dt)
+    y_tok = torch.empty_like(y_pair).scatter_(1, order[..., None].expand(B, SK, D), y_pair)
+    return y_tok.reshape(B, S, top_k, D).sum(dim=2), probs
+
+
+def moe_aux_loss(probs: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Switch-style load-balance loss over all routed tokens.
+
+    probs: (..., E) router softmax.  loss = E * sum(frac_tokens_e * mean_prob_e),
+    the fractions from the top-k hard assignment.
+    """
+    E = probs.shape[-1]
+    flat = probs.reshape(-1, E)
+    _, idx = _top_k(flat, top_k)
+    hard = torch.zeros_like(flat).scatter_(1, idx, 1.0)
+    frac = hard.mean(dim=0) / top_k
+    mean_prob = flat.mean(dim=0)
+    return E * torch.sum(frac * mean_prob)

@@ -1,4 +1,4 @@
-"""Model facade over the ported families (``dense``, ``ssm``, ``hybrid``).
+"""Model facade over every assigned architecture family.
 
 ``Model`` is an ``nn.Module`` holding the stacked parameter tree under the
 JAX package's names (``embed``, ``blocks.attn.wq``, ``super.0.log_lambda``,
@@ -9,10 +9,11 @@ JAX package's names (``embed``, ``blocks.attn.wq``, ``super.0.log_lambda``,
 * ``decode_step``  — one token + state -> (logits, state)
 * ``init_state``   — the zero decode state
 
-The parameters live on ``device``, ``"cuda"`` unless the caller asks for
-another: building a model without ``device=`` on a host with no card
-raises.  The other families (MoE, enc-dec, VLM) are not ported yet
-(ROADMAP queue 1, item 8) and raise ``NotImplementedError``.
+It dispatches on ``cfg.family``: ``dense``, ``moe`` and ``vlm`` to
+``transformer``, ``ssm`` to ``ssm``, ``hybrid`` to ``rglru``, ``encdec`` to
+``encdec``.  The parameters live on ``device``, ``"cuda"`` unless the
+caller asks for another: building a model without ``device=`` on a host
+with no card raises.
 """
 
 from __future__ import annotations
@@ -23,13 +24,14 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from . import rglru, ssm, transformer
+from . import encdec, rglru, ssm, transformer
 from .params import init_params, param_count
 from .transformer import ExecConfig
 
-__all__ = ["Model", "ExecConfig", "resolve_device"]
+__all__ = ["Model", "ExecConfig", "resolve_device", "VLM_PATCHES"]
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+VLM_PATCHES = 256  # vision-frontend stub: fixed patch-embedding prefix
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -81,11 +83,6 @@ class Model(nn.Module):
         dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family} family is not ported yet (ROADMAP queue 1, item 8); "
-                f"ported: {PORTED_FAMILIES}"
-            )
         self.cfg = cfg
         self.ex = ex or ExecConfig()
         self.device = resolve_device(device)
@@ -102,6 +99,8 @@ class Model(nn.Module):
             return ssm.ssm_specs(self.cfg)
         if self.cfg.family == "hybrid":
             return rglru.hybrid_specs(self.cfg)
+        if self.cfg.family == "encdec":
+            return encdec.encdec_specs(self.cfg)
         return transformer.lm_specs(self.cfg)
 
     @property
@@ -119,6 +118,8 @@ class Model(nn.Module):
             logits, _ = ssm.ssm_forward(self.cfg, self.ex, self.params, batch)
         elif self.cfg.family == "hybrid":
             logits, _ = rglru.hybrid_forward(self.cfg, self.ex, self.params, batch)
+        elif self.cfg.family == "encdec":
+            logits, _ = encdec.encdec_forward(self.cfg, self.ex, self.params, batch)
         else:
             logits, _ = transformer.lm_forward(self.cfg, self.ex, self.params, batch)
         return logits
@@ -135,11 +136,15 @@ class Model(nn.Module):
             logits, _, state = rglru.hybrid_forward(
                 self.cfg, self.ex, self.params, batch, return_state=True
             )
+        elif self.cfg.family == "encdec":
+            logits, _, state = encdec.encdec_forward(
+                self.cfg, self.ex, self.params, batch, return_cache=True
+            )
         else:
             logits, _, state = transformer.lm_forward(
                 self.cfg, self.ex, self.params, batch, return_cache=True
             )
-        return logits[:, -1], state
+        return logits[:, -1].clone(), state  # a copy: the (B, S, V) logits are freed
 
     @torch.no_grad()
     def decode_step(self, state, tokens: torch.Tensor, idx: int):
@@ -150,13 +155,21 @@ class Model(nn.Module):
         if self.cfg.family == "hybrid":
             return rglru.hybrid_decode_step(self.cfg, self.ex, self.params, state, tokens,
                                             int(idx))
+        if self.cfg.family == "encdec":
+            return encdec.encdec_decode_step(self.cfg, self.ex, self.params, state, tokens,
+                                             int(idx))
         return transformer.lm_decode_step(self.cfg, self.ex, self.params, state, tokens, int(idx))
 
-    def init_state(self, batch_size: int, max_len: int):
+    def init_state(self, batch_size: int, max_len: int, enc_len: int | None = None):
+        """The zero decode state; an enc-dec model's cross cache holds
+        ``enc_len`` encoder positions (``max_len`` if not given)."""
         if self.cfg.family == "ssm":
             return ssm.init_ssm_state(self.cfg, batch_size, device=self.device)
         if self.cfg.family == "hybrid":  # fixed-size: max_len is not used
             return rglru.init_hybrid_state(self.cfg, batch_size, device=self.device)
+        if self.cfg.family == "encdec":
+            return encdec.init_encdec_cache(self.cfg, batch_size, max_len, enc_len or max_len,
+                                            device=self.device)
         return transformer.init_cache(self.cfg, batch_size, max_len, device=self.device)
 
 

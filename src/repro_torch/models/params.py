@@ -66,24 +66,36 @@ def _fan_in(spec: ParamSpec) -> int:
     return max(1, math.prod(spec.shape[d] for d in dims))
 
 
-def _init_one(spec: ParamSpec, gen: torch.Generator, device, dtype) -> torch.Tensor:
+def _draw(spec: ParamSpec, shape: tuple[int, ...], gen: torch.Generator, device) -> torch.Tensor:
     kw = dict(dtype=torch.float32, device=device)
     if spec.init == "zeros":
-        out = torch.zeros(spec.shape, **kw)
-    elif spec.init == "ones":
-        out = torch.ones(spec.shape, **kw)
-    elif spec.init in ("embed", "normal"):
+        return torch.zeros(shape, **kw)
+    if spec.init == "ones":
+        return torch.ones(shape, **kw)
+    if spec.init in ("embed", "normal"):
         # GPT-2-style 0.02 std: keeps tied-embedding logits O(1) at init
-        out = 0.02 * torch.randn(spec.shape, generator=gen, **kw)
-    elif spec.init == "lecun":
-        out = torch.randn(spec.shape, generator=gen, **kw) / math.sqrt(_fan_in(spec))
-    elif spec.init == "recurrent":
+        return 0.02 * torch.randn(shape, generator=gen, **kw)
+    if spec.init == "lecun":
+        return torch.randn(shape, generator=gen, **kw) / math.sqrt(_fan_in(spec))
+    if spec.init == "recurrent":
         # RG-LRU / SSM log-recurrence parameters: uniform in a stable range
-        u = 0.9 + 0.099 * torch.rand(spec.shape, generator=gen, **kw)
-        out = torch.log(u / (1.0 - u))  # logit of decay
-    else:
-        raise ValueError(f"unknown initializer {spec.init}")
-    return out.to(dtype or getattr(torch, spec.dtype))
+        u = 0.9 + 0.099 * torch.rand(shape, generator=gen, **kw)
+        return torch.log(u / (1.0 - u))  # logit of decay
+    raise ValueError(f"unknown initializer {spec.init}")
+
+
+def _init_one(spec: ParamSpec, gen: torch.Generator, device, dtype) -> torch.Tensor:
+    dt = dtype or getattr(torch, spec.dtype)
+    if spec.axes[0] != "layers" or len(spec.shape) == 1:
+        return _draw(spec, spec.shape, gen, device).to(dt)
+    # A stacked leaf is drawn a layer at a time, so the float32 draw never
+    # holds more than one layer: moonshot-v1-16b-a3b's expert stack
+    # (48, 64, 2048, 1408) would otherwise take a 35.4 GB float32 temporary
+    # beside its bf16 weights.
+    out = torch.empty(spec.shape, dtype=dt, device=device)
+    for i in range(spec.shape[0]):  # the layers in order, from the one generator
+        out[i] = _draw(spec, spec.shape[1:], gen, device)
+    return out
 
 
 def init_params(
@@ -96,7 +108,8 @@ def init_params(
     ``generator`` (which must live on ``device``) leaf by leaf in the tree's
     order.  The initializer laws are the JAX package's; its draws come from
     jax's PRNG, so the numbers differ.  ``dtype`` overrides every leaf's
-    stored type (the draws are made at float32 first)."""
+    stored type (the draws are made at float32 first; a stacked leaf a
+    layer at a time)."""
     return map_specs(lambda _p, s: _init_one(s, generator, device, dtype), specs)
 
 

@@ -1,13 +1,13 @@
-"""Decoder-only transformer, dense GQA family.
+"""Decoder-only transformer family: dense GQA, MoE, and VLM (M-RoPE).
 
 Layer-stacked parameters (a leading ``(L, ...)`` axis, the JAX package's
 tree), run by a Python loop over layers, and a KV-cache decode path.
 Attention goes through ``kernels.ops.flash_attention``: the tensors'
 device picks the flash kernel (CUDA) or its plain version (CPU) for full
-sequences, and decode runs ``layers.chunked_attention``.
-
-The MoE and VLM members of the family are not ported yet (ROADMAP queue 1,
-item 8): their specs raise ``NotImplementedError``.
+sequences, and decode runs ``layers.chunked_attention``.  The VLM takes
+precomputed patch embeddings as a prefix of the token embeddings (the
+vision frontend is a stub, as in the JAX package) and 3-D (t, h, w)
+positions for M-RoPE.
 """
 
 from __future__ import annotations
@@ -19,12 +19,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import apply_rope, rms_norm, swiglu
+from .layers import apply_mrope, apply_rope, moe_aux_loss, moe_layer, rms_norm, swiglu
 from .params import ParamSpec
 
 __all__ = ["ExecConfig", "block_specs", "lm_specs", "lm_forward", "lm_decode_step", "init_cache"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 8: MoE, M-RoPE/VLM, enc-dec)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,15 +68,28 @@ def mlp_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
     }
 
 
-def block_specs(cfg: ModelConfig, L: int) -> dict[str, Any]:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the {cfg.family} family {_NOT_PORTED}")
+def moe_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
+    assert cfg.moe is not None
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
     return {
+        "router": ParamSpec((L, D, E), ("layers", "embed", None)),
+        "w_gate": ParamSpec((L, E, D, F), ("layers", "expert", "embed", None)),
+        "w_up": ParamSpec((L, E, D, F), ("layers", "expert", "embed", None)),
+        "w_down": ParamSpec((L, E, F, D), ("layers", "expert", None, "embed")),
+    }
+
+
+def block_specs(cfg: ModelConfig, L: int) -> dict[str, Any]:
+    s: dict[str, Any] = {
         "ln1": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="zeros"),
         "ln2": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="zeros"),
         "attn": attn_specs(cfg, L),
-        "mlp": mlp_specs(cfg, L),
     }
+    if cfg.family == "moe":
+        s["moe"] = moe_specs(cfg, L)
+    else:
+        s["mlp"] = mlp_specs(cfg, L)
+    return s
 
 
 def lm_specs(cfg: ModelConfig) -> dict[str, Any]:
@@ -117,7 +128,10 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    if cfg.rope == "rope":
+    if cfg.rope == "mrope":
+        q = apply_mrope(q, pos, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, pos, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
 
@@ -140,13 +154,20 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
 
 
 def _block_apply(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, cache_idx):
+    """One block.  Returns (h, router probs or None, cache)."""
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     attn_out, new_cache = _attention(cfg, ex, p["attn"], hn, pos, cache=cache, cache_idx=cache_idx)
     h = h + attn_out
     hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-    m = p["mlp"]
-    y = swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
-    return h + y, new_cache
+    probs = None
+    if cfg.family == "moe":
+        m = p["moe"]
+        y, probs = moe_layer(hn2, m["router"], m["w_gate"], m["w_up"], m["w_down"],
+                             top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity)
+    else:
+        m = p["mlp"]
+        y = swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
+    return h + y, probs, new_cache
 
 
 def _logits(cfg: ModelConfig, params: dict, h) -> torch.Tensor:
@@ -157,6 +178,22 @@ def _logits(cfg: ModelConfig, params: dict, h) -> torch.Tensor:
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+
+
+def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings, behind the patch-embedding prefix of a vision
+    batch.  Returns (h, positions): the batch's, or 0..S-1 in every stream
+    ((B, S, 3) for M-RoPE, (B, S) otherwise)."""
+    h = _embed(cfg, params, batch["tokens"])
+    if cfg.modality == "vision" and "patch_embeds" in batch:
+        h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+    pos = batch.get("positions")
+    if pos is None:
+        B, S = h.shape[0], h.shape[1]
+        pos = torch.arange(S, device=h.device)[None, :].expand(B, S)
+        if cfg.rope == "mrope":
+            pos = pos[..., None].expand(B, S, 3)
+    return h, pos
 
 
 def lm_forward(
@@ -171,22 +208,21 @@ def lm_forward(
 
     Returns (logits, aux_loss) or (logits, aux_loss, cache); the cache is
     the stacked ``(L, B, S, K, hd)`` K/V pair for decode continuation, and
-    aux_loss is 0 (no MoE).
+    aux_loss the float32 sum of the MoE layers' load-balance losses (0
+    without MoE).
     """
-    h = _embed(cfg, params, batch["tokens"])
-    B, S = h.shape[0], h.shape[1]
-    pos = batch.get("positions")
-    if pos is None:
-        pos = torch.arange(S, device=h.device)[None, :].expand(B, S)
+    h, pos = _embed_inputs(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        h, (k, v) = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
-                                 cache=None, cache_idx=None)
+        h, probs, (k, v) = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
+                                        cache=None, cache_idx=None)
+        if probs is not None:
+            aux = aux + moe_aux_loss(probs, cfg.moe.top_k)
         if return_cache:
             ks.append(k)
             vs.append(v)
     logits = _logits(cfg, params, h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if return_cache:
         return logits, aux, (torch.stack(ks), torch.stack(vs))
     return logits, aux
@@ -211,9 +247,10 @@ def lm_decode_step(
     cache, in place, and return (logits, cache)."""
     B = tokens.shape[0]
     h = _embed(cfg, params, tokens[:, None])  # (B,1,D)
-    pos = torch.full((B, 1), idx, dtype=torch.long, device=h.device)
+    shape = (B, 1, 3) if cfg.rope == "mrope" else (B, 1)  # M-RoPE: t = h = w = idx
+    pos = torch.full(shape, idx, dtype=torch.long, device=h.device)
     for i in range(cfg.n_layers):
-        h, _ = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
+        h, _, _ = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
                             cache=(cache[0][i], cache[1][i]), cache_idx=idx)
     logits = _logits(cfg, params, h)[:, 0]
     return logits, cache

@@ -54,9 +54,10 @@ def make_decode_step(model: Model) -> Callable:
 
 def _pad_cache_to(state: Any, family: str, max_len: int) -> Any:
     """Grow a transformer's prefill caches ``(L, B, S, K, hd)`` to
-    ``max_len`` positions (zeros after the prompt).  The ssm and hybrid
-    states (conv tails, recurrent states, the hybrid's ring caches of
-    ``local_window`` slots) are fixed-size and pass through."""
+    ``max_len`` positions (zeros after the prompt); an enc-dec model's
+    self-attention caches likewise, its cross caches as they are.  The ssm
+    and hybrid states (conv tails, recurrent states, the hybrid's ring
+    caches of ``local_window`` slots) are fixed-size and pass through."""
 
     def pad_kv(arr):
         cur = arr.shape[2]
@@ -64,8 +65,11 @@ def _pad_cache_to(state: Any, family: str, max_len: int) -> Any:
             return arr
         return F.pad(arr, (0, 0, 0, 0, 0, max_len - cur))
 
-    if family == "dense":
+    if family in ("dense", "moe", "vlm"):
         return (pad_kv(state[0]), pad_kv(state[1]))
+    if family == "encdec":
+        return {"self": (pad_kv(state["self"][0]), pad_kv(state["self"][1])),
+                "cross": state["cross"]}
     return state  # ssm / hybrid states are fixed-size
 
 
@@ -95,13 +99,16 @@ class ServeEngine:
         *,
         generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        """Prefill ``batch`` (``tokens`` (B, S) ints, a tensor or an array),
-        then decode.  Returns the (B, new) int32 tokens on the engine's
+        """Prefill ``batch`` (``tokens`` (B, S) ints, a tensor or an array;
+        a vision model's ``patch_embeds`` prefix and ``positions``, an
+        enc-dec model's ``enc_embeds``), then decode.  Returns the (B, new) int32 tokens on the engine's
         device.  ``generator`` (on that device) drives sampling; a fresh one
         seeded 0 if none is given."""
         batch = self._on_device(batch)
         gen = generator or torch.Generator(self.device).manual_seed(0)
         prompt_len = batch["tokens"].shape[1]
+        if self.model.cfg.family == "vlm":
+            prompt_len += batch["patch_embeds"].shape[1]
         last_logits, state = self._prefill(batch)
         state = _pad_cache_to(state, self.model.cfg.family, self.config.max_len)
         tokens = self._sample(last_logits, gen)

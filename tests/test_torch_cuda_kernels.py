@@ -471,6 +471,24 @@ def test_flash_attention_mma_kernel_gqa_groups_and_ragged_lengths(cuda_device, c
 
 
 @pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", [
+    # B, S, T, H, K, hd, causal
+    (2, 256, 256, 16, 16, 128, True),  # G = 1, hd 128 (moonshot-v1-16b-a3b's heads)
+    (2, 256, 256, 12, 2, 128, True),  # G = 6, hd 128 (qwen2-vl-2b's heads)
+    (2, 256, 256, 16, 16, 64, False),  # no mask (seamless-m4t-large-v2's encoder)
+    (2, 128, 1024, 16, 16, 64, False),  # S != T, no mask (its cross-attention)
+], ids=str)
+def test_flash_attention_mma_kernel_at_the_moe_vlm_encdec_shapes(cuda_device, case):
+    q, k, v = _qkv(case, torch.bfloat16, cuda_device, seed=6)
+    before = flash_attention_cuda.mma_launches
+    got = ops.flash_attention(q, k, v, causal=case[6])
+    want = flash_attention_plain(q, k, v, causal=case[6])
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.mma_launches == before + 1
+    _close(got, want, ML_DTYPES["bfloat16"][1])
+
+
+@pytest.mark.needs_cuda
 def test_flash_attention_mma_kernel_empty_and_refusals(cuda_device):
     q, k, v = _qkv((2, 8, 8, 4, 2, 64), torch.bfloat16, cuda_device)
     before = (flash_attention_cuda.launches, flash_attention_cuda.mma_launches)
@@ -745,3 +763,51 @@ def test_reduced_models_on_the_card_match_the_cpu(cuda_device, name):
 
 def _cpu_tree(tree):
     return {k: _cpu_tree(v) if isinstance(v, dict) else v.detach().cpu() for k, v in tree.items()}
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for n, t in tree.items() for k, v in _leaves(t, f"{prefix}/{n}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {k: v for n, t in enumerate(tree) for k, v in _leaves(t, f"{prefix}/{n}").items()}
+    return {prefix: tree}
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_reduced_moe_vlm_encdec_models_on_the_card_match_the_cpu(cuda_device, name):
+    """Reduced MoE, VLM (a patch prefix, 3-D positions) and enc-dec models
+    at float32: the card's prefill (kernel 3, one launch an attention, an
+    enc-dec decoder layer two), its every state leaf and a decode step equal
+    the CPU's plain path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import _pad_cache_to
+
+    cfg = get_arch(name).reduced()
+    gpu = Model(cfg, generator=torch.Generator(cuda_device).manual_seed(1), device=cuda_device)
+    cpu = Model(cfg, params=_cpu_tree(gpu.params), device="cpu")
+    rng = np.random.default_rng(2)
+    S = 40
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, S - 8 * (
+        cfg.family == "vlm"))))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal((2, 8, cfg.d_model))).float()
+        pos = np.stack([np.zeros(S), np.arange(S) % 5, np.arange(S) // 5], -1)
+        batch["positions"] = torch.from_numpy(np.broadcast_to(pos, (2, S, 3)).copy()).long()
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.from_numpy(rng.standard_normal((2, 24, cfg.d_model))).float()
+    before = flash_attention_cuda.launches
+    g_last, g_state = gpu.prefill({k: v.to(cuda_device) for k, v in batch.items()})
+    want_launches = cfg.n_layers + (cfg.enc_layers + cfg.n_layers) * (cfg.family == "encdec")
+    assert flash_attention_cuda.launches - before == want_launches
+    c_last, c_state = cpu.prefill(batch)
+    _close(g_last.cpu(), c_last, 1e-4)
+    g_leaves, c_leaves = _leaves(g_state), _leaves(c_state)
+    assert sorted(g_leaves) == sorted(c_leaves)
+    for path, leaf in c_leaves.items():
+        _close(g_leaves[path].cpu(), leaf, 1e-4)
+    g_state, c_state = (_pad_cache_to(st, cfg.family, S + 1) for st in (g_state, c_state))
+    g_log, _ = gpu.decode_step(g_state, batch["tokens"][:, 0].to(cuda_device), S)
+    c_log, _ = cpu.decode_step(c_state, batch["tokens"][:, 0], S)
+    _close(g_log.cpu(), c_log, 1e-4)
