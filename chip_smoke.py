@@ -110,7 +110,26 @@ Phases (each raises on failure, so any failure exits non-zero):
     tests/test_cli.py's, ``plan_fleet`` on examples/quickstart.py's three
     jobs and tests/test_scheduler_fleet.py's two cases, and Example 1 on
     ``make_hetero_fleet``'s FPGA + GPU + CPU fleet, each output and plan
-    equal to the plain engine's, kernel 1 launched by every feasible plan.
+    equal to the plain engine's, kernel 1 launched by every feasible plan;
+14. (after phase 11) training smollm-135m at its full published width and
+    depth (30 layers, 134.5 M parameters) through the port's entry points,
+    on the differentiable ``attn_impl="xla"`` route: (a) one AdamW step at
+    float32, seq 256, batch 2, on the card and on the CPU from the same
+    weights (drawn on the CPU), loss and grad norm within 1e-3 relative,
+    and the largest relative difference of any updated leaf; (b)
+    ``launch.train.build_loop(full=True)`` for 30 bfloat16 steps on float32
+    master weights at train_4k's seq 4096 with the batch cut from 256 to 8:
+    the mean loss of the last 5 steps below that of the first 5, no kernel
+    launched in the steps, ms a step (median of steps 4-30), tokens/s, peak
+    memory and the device's busy share of one traced step; (c) 10 steps, a
+    checkpoint and a fresh loop resumed to 20 against 20 straight steps at
+    seq 1024, batch 4, params within 1e-2 (bitwise reported, not required:
+    the card's embedding backward may accumulate in any order); (d) the
+    loss under no_grad on ``attn_impl="pallas"`` launches kernel 3 once a
+    layer (30, on the tensor cores) and agrees with the "xla" route's
+    within 2e-2, the train step on "pallas" raises the wrapper's error, and
+    kernel 3 is timed at this shape (S = T = 4096) beside its plain version
+    and SDPA.
 
 Float32 matrix products run in full float32 on the card
 (``torch.backends.cuda.matmul.allow_tf32`` is set False, as is cuDNN's
@@ -120,6 +139,8 @@ The launch counts are zeroed just before each main-path run and read just
 after it (for phase 6, around the many-walk alone: it must launch the
 fleet-parallel kernel and never the single-instance one; for phase 10,
 around one ``generate``; for phase 13, around each run on the card; for
+phase 14, around (a)'s card step, (b)'s 30 steps (which must launch no
+kernel) and (d)'s no-grad loss on the "pallas" route; for
 phase 12, around the warm replans of (a)-(b)
 alone, around each call on the card's service in (c), around
 ``power_premium`` and around ``run_fault_injection`` in (d), where the warm
@@ -245,6 +266,13 @@ CHECK_LAYERS = {"moonshot-v1-16b-a3b": 2}
 # The vision stub's patch grid: 16 x 16 = VLM_PATCHES patches in phase 10,
 # 8 x 8 in phase 11's 128-position prompts.
 SERVE_GRID, CHECK_GRID = 16, 8
+# Phase 14: training full-width, full-depth smollm-135m.  train_4k's shape
+# (seq 4096, batch 256) with the batch cut to 8 for the card and the time
+# limit; 30 steps at lr 1e-3 on the launcher's warm-up cosine schedule.
+TRAIN = dict(arch="smollm-135m", seq_len=4096, batch=8, steps=30, lr=1e-3, shape="train_4k")
+TRAIN_CHECK = dict(seq_len=256, batch=2, lr=1e-3, rel_tol=1e-3)  # (a): float32, card vs CPU
+TRAIN_RESUME = dict(seq_len=1024, batch=4, steps=20, atol=1e-2)  # (c): resume at step 10
+TRAIN_ROUTE_TOL = 2e-2  # (d): the bf16 tolerance of the reference kernel tests
 # launch.schedule's flags: its module docstring's (the JAX package's too),
 # and tests/test_cli.py's.
 SCHEDULE_ARGV = {
@@ -778,9 +806,13 @@ def phase_deep(engine: str) -> dict:
 
 
 def _device_split(run, kernels: tuple[str, ...] = ("placement_sweep_kernel",)) -> dict:
-    """Device time of one traced ``run()`` by kind, from torch.profiler:
-    each kernel named in ``kernels``, host-to-device and device-to-host
-    copies, the rest."""
+    """Device time of one traced ``run()`` by kind, from torch.profiler's
+    device events (kernels, copies, sets) alone: each kernel named in
+    ``kernels``, host-to-device and device-to-host copies, the rest; and
+    the busy share, the union of those events' intervals over the traced
+    wall time.  (The host-side ops' device times, which attribute the same
+    kernels a second time, are not counted.)"""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -789,10 +821,12 @@ def _device_split(run, kernels: tuple[str, ...] = ("placement_sweep_kernel",)) -
         wall_us = (time.perf_counter() - t0) * 1e6
     split = {**dict.fromkeys(kernels, 0.0), "memcpy_htod": 0.0, "memcpy_dtoh": 0.0}
     other: dict[str, float] = {}
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        if us <= 0.0:
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
             continue
+        us = float(e.time_range.elapsed_us())
+        spans.append((float(e.time_range.start), float(e.time_range.end)))
         named = [k for k in kernels if k in e.key]
         if named:
             split[named[0]] += us
@@ -802,11 +836,16 @@ def _device_split(run, kernels: tuple[str, ...] = ("placement_sweep_kernel",)) -
             split["memcpy_dtoh"] += us
         else:
             other[e.key] = other.get(e.key, 0.0) + us
-    if not any(split.values()) and not other:
+    if not spans:
         return {"device_us": "not measured (the profiler recorded no device time)"}
-    busy = sum(split.values()) + sum(other.values())
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):  # the union of the device events' intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
     split["other"] = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
-    # Device events may overlap one another, so this busy share is an upper bound.
+    split["device_events"] = len(spans)
+    split["device_busy_us"] = busy
     split["traced_wall_us"] = wall_us
     split["device_busy_share"] = busy / wall_us
     return split
@@ -1950,9 +1989,209 @@ def phase_serve_check(name: str, device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training on the card
+# ---------------------------------------------------------------------------
+
+
+def _ml_launches(counts: dict) -> dict:
+    return {k: counts[k] for k in ("flash_attention", "ssd_scan", "rglru_scan")}
+
+
+def _train_batch(cfg, seq_len: int, batch: int, step: int, device) -> dict:
+    import torch
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import make_batch_fn
+
+    raw = make_batch_fn(cfg, InputShape("chip", seq_len, batch, "train"))(step)
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in raw.items()}
+
+
+def phase_train_check(device) -> dict:
+    """(a) One AdamW step of full-width smollm-135m at float32 on the card
+    and on the CPU from the same weights (drawn on the CPU) and batch:
+    loss and grad norm within rel_tol; the largest relative difference
+    (to the leaf's largest magnitude) of any updated leaf."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ExecConfig, Model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_train_state
+
+    cfg = dataclasses.replace(get_arch(TRAIN["arch"]), dtype="float32")
+    ex = ExecConfig(attn_impl="xla", remat="full")
+    opt = AdamW(TRAIN_CHECK["lr"])
+    cpu_model = Model(cfg, ex, params={}, device="cpu")
+    gpu_model = Model(cfg, ex, params={}, device=device)
+    cpu_state = init_train_state(cpu_model, opt, torch.Generator().manual_seed(0))
+    gpu_state = tree_map(lambda t: t.to(device), cpu_state)
+    S, B = TRAIN_CHECK["seq_len"], TRAIN_CHECK["batch"]
+    batch = _train_batch(cfg, S, B, 0, "cpu")
+    (gpu_state, g), counts = _counted(
+        lambda: make_train_step(gpu_model, opt)(gpu_state, _on(batch, device)))
+    if any(_ml_launches(counts).values()):
+        raise AssertionError(f"train check: the card's step launched kernels {counts}")
+    cpu_state, c = make_train_step(cpu_model, opt)(cpu_state, batch)
+    rel = {k: abs(float(g[k]) - float(c[k])) / abs(float(c[k])) for k in ("loss", "grad_norm")}
+    worst = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(leaves(gpu_state.params), leaves(cpu_state.params), strict=True))
+    rec = {"model": cfg.name, "dtype": "float32", "seq_len": S, "batch": B,
+           "loss": [float(g["loss"]), float(c["loss"])],
+           "grad_norm": [float(g["grad_norm"]), float(c["grad_norm"])],
+           "rel_diff": rel, "rel_tol": TRAIN_CHECK["rel_tol"],
+           "max_leaf_rel_diff_after_update": worst}
+    print("[train-check] " + json.dumps(rec), flush=True)
+    if max(rel.values()) > TRAIN_CHECK["rel_tol"] or not all(
+            np.isfinite([float(g["loss"]), float(g["grad_norm"])])):
+        raise AssertionError(f"train check: card vs CPU differ by {rel} (tolerance "
+                             f"{TRAIN_CHECK['rel_tol']})")
+    del gpu_state, cpu_state, gpu_model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train(device) -> dict:
+    """(b) launch.train.build_loop at full width and depth in bfloat16 on
+    float32 master weights: 30 steps whose loss falls and that launch no
+    kernel; ms a step (median of steps 4-30), tokens/s, peak memory, and the
+    device's busy share of one traced step.  Returns the record and the
+    trained state."""
+    import torch
+
+    from repro_torch.configs.shapes import get_shape
+    from repro_torch.launch.train import build_loop
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    S, B, steps = TRAIN["seq_len"], TRAIN["batch"], TRAIN["steps"]
+    published = get_shape(TRAIN["shape"])
+    print(f"[train] {TRAIN['arch']} at {TRAIN['shape']}'s seq {published.seq_len}, batch cut "
+          f"from {published.global_batch} to {B}", flush=True)
+    loop, _ = build_loop(TRAIN["arch"], full=True, seq_len=S, batch=B, steps=steps,
+                         lr=TRAIN["lr"], log_every=0, device=device)
+    t0 = time.perf_counter()
+    state, counts = _counted(lambda: loop.run(torch.Generator(device).manual_seed(0)))
+    run_s = time.perf_counter() - t0
+    if any(_ml_launches(counts).values()):
+        raise AssertionError(f"train: the 30 steps launched kernels {counts}; want none")
+    losses = [h["loss"] for h in loop.history]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if len(losses) != steps or not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"train: loss did not fall: first 5 {first}, last 5 {last}")
+    step_ms = statistics.median(h["step_time"] for h in loop.history[3:]) * 1e3
+    batch = _train_batch(loop.model.cfg, S, B, steps, device)
+    split = _device_split(lambda: (loop.step_fn(state, batch), torch.cuda.synchronize()),
+                          kernels=())
+    rec = {"model": TRAIN["arch"], "layers": loop.model.cfg.n_layers,
+           "d_model": loop.model.cfg.d_model, "dtype": loop.model.cfg.dtype,
+           "master_dtype": "float32", "attn_impl": loop.model.ex.attn_impl,
+           "remat": loop.model.ex.remat, "params": loop.model.n_params(),
+           "seq_len": S, "batch": B, "published_batch": published.global_batch,
+           "steps": steps, "loss_first5_mean": first, "loss_last5_mean": last,
+           "losses": losses, "run_s": run_s, "ms_per_step_median_4_30": step_ms,
+           "tokens_per_s": B * S / (step_ms / 1e3),
+           "card_gb_peak": torch.cuda.max_memory_allocated(device) / 1e9,
+           "launches": counts, "device_us_one_step": split}
+    print("[train] " + json.dumps(rec), flush=True)
+    return {"rec": rec, "state": state, "batch": batch, "cfg": loop.model.cfg}
+
+
+def phase_train_resume(device) -> dict:
+    """(c) 10 steps, a checkpoint, and a fresh TrainLoop resumed to 20,
+    against 20 steps straight through: params within atol (bf16 compute:
+    the embedding gather's backward accumulates in no fixed order on the
+    card, so bitwise equality is reported, not required)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.launch.train import build_loop
+
+    kw = dict(full=True, seq_len=TRAIN_RESUME["seq_len"], batch=TRAIN_RESUME["batch"],
+              steps=TRAIN_RESUME["steps"], lr=TRAIN["lr"], log_every=0, device=device)
+    straight, _ = build_loop(TRAIN["arch"], **kw)
+    state_a = straight.run(torch.Generator(device).manual_seed(1))
+    with tempfile.TemporaryDirectory() as ck:
+        first, _ = build_loop(TRAIN["arch"], ckpt_dir=ck, **kw)
+        first.config.total_steps = first.config.ckpt_every = TRAIN_RESUME["steps"] // 2
+        first.run(torch.Generator(device).manual_seed(1))
+        resumed, _ = build_loop(TRAIN["arch"], ckpt_dir=ck, **kw)
+        state_b = resumed.run(torch.Generator(device).manual_seed(2))
+    if int(resumed.history[0]["step"]) != TRAIN_RESUME["steps"] // 2:
+        raise AssertionError(f"resume: started at step {resumed.history[0]['step']}")
+    pairs = list(zip(leaves(state_a.params), leaves(state_b.params), strict=True))
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    rec = {"model": TRAIN["arch"], "seq_len": TRAIN_RESUME["seq_len"],
+           "batch": TRAIN_RESUME["batch"], "steps": TRAIN_RESUME["steps"],
+           "resumed_at": resumed.history[0]["step"], "max_abs_param_diff": diff,
+           "bitwise": all(torch.equal(a, b) for a, b in pairs), "atol": TRAIN_RESUME["atol"],
+           "loss_straight_vs_resumed_last": [straight.history[-1]["loss"],
+                                             resumed.history[-1]["loss"]]}
+    print("[train-resume] " + json.dumps(rec), flush=True)
+    if not diff <= TRAIN_RESUME["atol"]:
+        raise AssertionError(f"resume: params differ by {diff} (atol {TRAIN_RESUME['atol']})")
+    return rec
+
+
+def phase_train_route(device, trained: dict) -> dict:
+    """(d) The route is the caller's: Model.loss under no_grad on
+    attn_impl="pallas" launches kernel 3 once a layer and agrees with the
+    "xla" route's loss within the bf16 tolerance; the train step on the
+    "pallas" route raises the wrapper's error.  Kernel 3 is also timed at
+    this shape beside its plain version and SDPA."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import ExecConfig, Model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+
+    cfg, state, batch = trained["cfg"], trained["state"], trained["batch"]
+    pallas = Model(cfg, ExecConfig(attn_impl="pallas", remat="full"), params={}, device=device)
+    xla = Model(cfg, ExecConfig(attn_impl="xla", remat="full"), params={}, device=device)
+    with torch.no_grad():
+        (loss_k, _), counts = _counted(lambda: pallas.loss(state.params, batch))
+        loss_x, _ = xla.loss(state.params, batch)
+    want = {"flash_attention": cfg.n_layers, "ssd_scan": 0, "rglru_scan": 0}
+    rel = abs(float(loss_k) - float(loss_x)) / abs(float(loss_x))
+    try:
+        make_train_step(pallas, AdamW(TRAIN["lr"]))(state, batch)
+    except RuntimeError as e:
+        if 'attn_impl="xla"' not in str(e):
+            raise
+        refused = str(e)
+    else:
+        raise AssertionError("train route: the step on attn_impl='pallas' did not raise")
+    timing = _time_attention((TRAIN["batch"], TRAIN["seq_len"], TRAIN["seq_len"], cfg.n_heads,
+                              cfg.n_kv_heads, cfg.resolved_head_dim, True, 0), device, 41)
+    rec = {"model": cfg.name, "seq_len": TRAIN["seq_len"], "batch": TRAIN["batch"],
+           "pallas_route_launches": counts, "loss_pallas_route": float(loss_k),
+           "loss_xla_route": float(loss_x), "rel_diff": rel, "rel_tol": TRAIN_ROUTE_TOL,
+           "grad_step_refused": refused, "flash_attention_at_train_shape": timing}
+    print("[train-route] " + json.dumps(rec), flush=True)
+    if _ml_launches(counts) != want or counts["flash_attention_mma"] != cfg.n_layers:
+        raise AssertionError(f"train route: no-grad pallas loss launched {counts}; want {want}, "
+                             f"all on the tensor-core kernel")
+    if not rel <= TRAIN_ROUTE_TOL:
+        raise AssertionError(f"train route: pallas vs xla loss differ by {rel}")
+    return rec
+
+
 def main() -> int:
     import torch
 
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; run it from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
@@ -2023,6 +2262,24 @@ def main() -> int:
     for name in SERVE_MODELS:
         phase_serve_check(name, device)
 
+    # phase 14: training (no kernel inside the steps; kernel 3 in (d)'s
+    # no-grad loss on the "pallas" route)
+    train_check = phase_train_check(device)
+    trained = phase_train(device)
+    train_resume = phase_train_resume(device)
+    train_route = phase_train_route(device, trained)
+    print("[train-summary] " + json.dumps({
+        "card": card, "ms_per_step": trained["rec"]["ms_per_step_median_4_30"],
+        "tokens_per_s": trained["rec"]["tokens_per_s"],
+        "card_gb_peak": trained["rec"]["card_gb_peak"],
+        "device_busy_share": trained["rec"]["device_us_one_step"].get("device_busy_share"),
+        "loss_first5_last5": [trained["rec"]["loss_first5_mean"],
+                              trained["rec"]["loss_last5_mean"]],
+        "card_vs_cpu_rel": train_check["rel_diff"],
+        "resume_max_abs_diff": train_resume["max_abs_param_diff"],
+        "route_launches": train_route["pallas_route_launches"]["flash_attention"]}), flush=True)
+    del trained
+
     def served(kernel: str) -> int:  # launches over every served generate
         return sum(r["launches"][kernel] for r in serve.values())
 
@@ -2036,7 +2293,8 @@ def main() -> int:
         ("placement_sweep_batch", "src/repro/kernels/placement_step.py:267", timing_batch,
          sum(many_launches.values()) + service_launches["what_if_many"]),
         ("flash_attention", "src/repro/kernels/flash_attention.py:121", timing_flash,
-         served("flash_attention_mma")),
+         served("flash_attention_mma")
+         + train_route["pallas_route_launches"]["flash_attention_mma"]),
         ("ssd_scan", "src/repro/kernels/ssd_scan.py:103", timing_ssd, served("ssd_scan_mma")),
         ("rglru_scan", "src/repro/kernels/rglru_scan.py:75", timing_rglru, served("rglru_scan")),
     ):

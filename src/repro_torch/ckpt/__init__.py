@@ -1,0 +1,5 @@
+"""Checkpointing: async save, retention, auto-resume."""
+
+from .checkpoint import CheckpointManager, load_pytree, save_pytree
+
+__all__ = ["CheckpointManager", "load_pytree", "save_pytree"]

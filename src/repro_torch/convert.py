@@ -17,8 +17,10 @@ two such pairs, an SSM or hybrid state a dict), into torch tensors with
 the same names and structure, every family's (the MoE blocks' router and
 expert stacks, the enc-dec model's ``enc_blocks`` / ``dec_blocks``), so
 the port can run on the reference's weights and continue from its
-prefill.  A bfloat16 array
-(the ``ml_dtypes`` type that jax hands to numpy) keeps its bits.
+prefill.  ``train_state_from`` does the same for a train state (params,
+optimizer moments, step, error-feedback residual), so both packages can
+continue training from one state.  A bfloat16 array (the ``ml_dtypes``
+type that jax hands to numpy) keeps its bits.
 """
 
 from __future__ import annotations
@@ -30,10 +32,11 @@ import torch
 
 from .core.scheduler import ScheduleInstance
 from .core.task import DeviceProfile, FleetSpec, Task, TaskVariant
+from .train.step import TrainState
 
 __all__ = [
     "task_from", "tasks_from", "fleet_from", "instance_from", "instances_from",
-    "params_from", "state_from",
+    "params_from", "state_from", "train_state_from",
 ]
 
 
@@ -119,3 +122,19 @@ def state_from(state: Any, device: torch.device | str) -> Any:
     {...}}`` (each leaf stacked ``(n_super, ...)`` under ``super`` and
     ``(1, ...)`` under ``rest``)."""
     return _tree_from(state, device, None)
+
+
+def train_state_from(state: Any, device: torch.device | str) -> TrainState:
+    """The JAX package's ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``), read by its field names -> the
+    port's, on ``device``, types kept: ``params``; ``opt_state`` (AdamW's
+    ``m`` / ``v``, SGD's ``mom`` or Adafactor's ``f``, trees of the
+    params' names); ``step`` (0-d int32); ``ef_residual`` (None without
+    compression)."""
+    ef = state.ef_residual
+    return TrainState(
+        params=_tree_from(state.params, device, None),
+        opt_state=_tree_from(state.opt_state, device, None),
+        step=_tensor(state.step, device, torch.int32),
+        ef_residual=None if ef is None else _tree_from(ef, device, None),
+    )

@@ -148,6 +148,18 @@ def launch(name: str, symbol: str, argtypes: list, args: tuple, device: torch.de
         raise RuntimeError(f"{name} kernel launch failed: {err_string(err).decode()} ({err})")
 
 
+def check_no_grad(kernel: str, **named: torch.Tensor) -> None:
+    """Raise when grad mode is on and a named tensor requires grad: the
+    kernels have no backward, and an output without a ``grad_fn`` would
+    leave everything upstream of it silently untrained."""
+    needy = [name for name, t in named.items() if t.requires_grad]
+    if needy and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{kernel} has no backward, and {', '.join(needy)} require grad: train on the "
+            f'differentiable route, ExecConfig(attn_impl="xla"), or call the kernel under '
+            f"torch.no_grad()")
+
+
 def check_cuda(smem: int, **named: torch.Tensor) -> None:
     """Raise unless every named tensor is a contiguous CUDA tensor and a
     block's ``smem`` bytes of shared memory fit the card."""

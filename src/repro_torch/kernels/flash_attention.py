@@ -134,8 +134,10 @@ def flash_attention_cuda(
     float32 the CUDA-core one.  ``flash_attention_cuda.launches`` counts
     the launches of either, ``flash_attention_cuda.mma_launches`` those of
     the tensor-core kernel (an empty ``B * H * S`` returns an empty output
-    and launches nothing; ``T == 0`` raises).
+    and launches nothing; ``T == 0`` raises).  The kernel has no backward:
+    under grad mode, inputs that require grad raise.
     """
+    _build.check_no_grad("flash_attention_cuda", q=q, k=k, v=v)
     B, S, H, K, T, hd = _check(q, k, v)
     _build.check_cuda(0, q=q, k=k, v=v)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -3,7 +3,9 @@
 A CPU tensor goes to the kernel's plain torch version; a CUDA tensor goes
 to the hand-written kernel.  There is no fallback between the two: a CUDA
 tensor either runs through the kernel or raises, and any other device
-raises.
+raises.  The kernels have no backward: under grad mode a CUDA input that
+requires grad raises, and training takes ``ExecConfig(attn_impl="xla")``,
+which does not come here.
 """
 
 from __future__ import annotations

@@ -178,8 +178,11 @@ def rglru_scan_cuda(x, r_gate, i_gate, log_lambda, *, c: float = 8.0,
     bfloat16; log_lambda is float32 or bfloat16.  Returns y, or
     ``(y, float32 h_{S-1})``.  ``rglru_scan_cuda.launches`` counts the
     launches made (an empty ``B * W`` or ``S`` returns empty outputs, a
-    zero state, and launches nothing).
+    zero state, and launches nothing).  The kernel has no backward: under
+    grad mode, inputs that require grad raise.
     """
+    _build.check_no_grad("rglru_scan_cuda", x=x, r_gate=r_gate, i_gate=i_gate,
+                         log_lambda=log_lambda)
     B, S, W = _check(x, r_gate, i_gate, log_lambda)
     _build.check_cuda(0, x=x, r_gate=r_gate, i_gate=i_gate, log_lambda=log_lambda)
     if x.dtype not in _DTYPES or r_gate.dtype != x.dtype or i_gate.dtype != x.dtype:

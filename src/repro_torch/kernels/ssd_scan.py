@@ -182,7 +182,10 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, *, chunk: int, return_state: bool = False
     counts the calls that launched either kernel,
     ``ssd_scan_cuda.mma_launches`` those on the tensor-core kernel (an
     empty ``B * nh`` or ``S`` returns empty outputs and launches nothing).
+    The kernels have no backward: under grad mode, inputs that require grad
+    raise.
     """
+    _build.check_no_grad("ssd_scan_cuda", x=x, dt=dt, A=A, B=Bm, C=Cm, D=D)
     Bb, S, nh, hp, ng, ds = _check(x, dt, A, Bm, Cm, D, chunk)
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"x, B, C must share float32 or bfloat16, got {x.dtype}, {Bm.dtype}, "

@@ -5,7 +5,8 @@ with M-RoPE (qwen2-vl-2b); Mamba-2 SSD (mamba2-130m); the Griffin hybrid
 Layer-stacked parameters under the JAX package's names, run by Python
 loops over layers."""
 
-from .model import ExecConfig, Model
-from .params import ParamSpec, init_params, map_specs, param_count
+from .model import ExecConfig, Model, cross_entropy
+from .params import ParamSpec, init_params, logical_axes, map_specs, param_count
 
-__all__ = ["ExecConfig", "Model", "ParamSpec", "init_params", "map_specs", "param_count"]
+__all__ = ["ExecConfig", "Model", "cross_entropy", "ParamSpec", "init_params", "logical_axes",
+           "map_specs", "param_count"]

@@ -6,9 +6,11 @@ the encoder.  Decoder layers add cross-attention over the encoder output;
 decode keeps a growing self-attention KV cache and the fixed cross K/V
 computed at the prefill.
 
-Full-sequence attention goes through ``kernels.ops.flash_attention``: the
-encoder's self-attention and the decoder's cross-attention without a mask,
-the decoder's self-attention causally.  Decode (one query) runs
+Full-sequence attention goes through ``transformer._attn_dispatch`` on
+``ExecConfig.attn_impl``'s route (``kernels.ops.flash_attention`` on
+``"pallas"``, ``layers.chunked_attention`` on ``"xla"``): the encoder's
+self-attention and the decoder's cross-attention without a mask, the
+decoder's self-attention causally.  Decode (one query) runs
 ``layers.chunked_attention``.
 """
 
@@ -22,7 +24,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from .layers import apply_rope, rms_norm, swiglu
 from .params import ParamSpec
-from .transformer import ExecConfig, _layer, attn_specs, mlp_specs
+from .transformer import ExecConfig, _attn_dispatch, _layer, attn_specs, mlp_specs
 
 __all__ = [
     "encdec_specs",
@@ -81,26 +83,21 @@ def _positions(h: torch.Tensor, start: int = 0) -> torch.Tensor:
     return (start + torch.arange(S, device=h.device))[None, :].expand(B, S)
 
 
-def _attend(ex: ExecConfig, q, k, v, *, causal: bool) -> torch.Tensor:
-    """Full-sequence attention (the flash kernel on the card); one query
-    scores all T keys at once, as the JAX package's decode does."""
-    T = k.shape[1]
-    return ops.flash_attention(q, k, v, q_offset=0, causal=causal, window=0,
-                               kv_chunk=T if q.shape[1] == 1 else min(ex.kv_chunk, T),
-                               p_dtype=ex.attn_p_dtype)
-
-
 def encode(cfg: ModelConfig, ex: ExecConfig, params: dict, enc_embeds: torch.Tensor):
     """Bidirectional encoder over precomputed frame embeddings."""
     h = enc_embeds.to(getattr(torch, cfg.dtype))
     pos = _positions(h)
-    for i in range(cfg.enc_layers):
-        p = _layer(params["enc_blocks"], i)
+
+    def body(h, p):
         hn = rms_norm(h, p["ln1"], cfg.norm_eps)
         q, k, v = _proj_qkv(cfg, p["attn"], hn, pos)
-        h = h + _out(_attend(ex, q, k, v, causal=False), p["attn"]["wo"])
+        h = h + _out(_attn_dispatch(ex, q, k, v, causal=False, window=0), p["attn"]["wo"])
         hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-        h = h + swiglu(hn2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+        return h + swiglu(hn2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+
+    body = ex.remat_wrap(body)
+    for i in range(cfg.enc_layers):
+        h = body(h, _layer(params["enc_blocks"], i))
     return rms_norm(h, params["enc_ln"], cfg.norm_eps)
 
 
@@ -113,7 +110,7 @@ def _dec_block(cfg, ex, p, h, enc_out, pos, *, self_cache, cache_idx):
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _proj_qkv(cfg, p["attn"], hn, pos)
     if self_cache is None:
-        out = _attend(ex, q, k, v, causal=True)
+        out = _attn_dispatch(ex, q, k, v, causal=True, window=0)
         new_self = (k, v)
     else:
         ck, cv = self_cache
@@ -136,7 +133,7 @@ def _dec_block(cfg, ex, p, h, enc_out, pos, *, self_cache, cache_idx):
         kx, vx = (t.to(h.dtype) for t in enc_out)
     else:
         kx, vx = _proj(enc_out, xa["wk"]), _proj(enc_out, xa["wv"])
-    h = h + _out(_attend(ex, qx, kx, vx, causal=False), xa["wo"])
+    h = h + _out(_attn_dispatch(ex, qx, kx, vx, causal=False, window=0), xa["wo"])
 
     # --- MLP ---
     hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
@@ -165,9 +162,10 @@ def encdec_forward(
     h = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
     pos = _positions(h)
     kept: list[tuple] = []
+    block = ex.remat_wrap(_dec_block)
     for i in range(cfg.n_layers):
-        h, new_self, new_cross = _dec_block(cfg, ex, _layer(params["dec_blocks"], i), h, enc_out,
-                                            pos, self_cache=None, cache_idx=None)
+        h, new_self, new_cross = block(cfg, ex, _layer(params["dec_blocks"], i), h, enc_out,
+                                       pos, self_cache=None, cache_idx=None)
         if return_cache:
             kept.append((*new_self, *new_cross))
     logits = _head(cfg, params, h)

@@ -9,6 +9,14 @@ JAX package's names (``embed``, ``blocks.attn.wq``, ``super.0.log_lambda``,
 * ``decode_step``  — one token + state -> (logits, state)
 * ``init_state``   — the zero decode state
 
+and training's, which take the parameter tree as an argument, as the JAX
+package's do (a model built with ``params={}`` holds no weights of its own:
+training's weights are the train state's):
+
+* ``loss``         — ``(params, batch) -> (loss, {"ce", "aux"})``, with grad
+* ``init``         — a float32 parameter tree drawn from a generator
+* ``param_axes``   — the logical-axes tree
+
 It dispatches on ``cfg.family``: ``dense``, ``moe`` and ``vlm`` to
 ``transformer``, ``ssm`` to ``ssm``, ``hybrid`` to ``rglru``, ``encdec`` to
 ``encdec``.  The parameters live on ``device``, ``"cuda"`` unless the
@@ -25,10 +33,10 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import encdec, rglru, ssm, transformer
-from .params import init_params, param_count
+from .params import init_params, logical_axes, param_count
 from .transformer import ExecConfig
 
-__all__ = ["Model", "ExecConfig", "resolve_device", "VLM_PATCHES"]
+__all__ = ["Model", "ExecConfig", "cross_entropy", "resolve_device", "VLM_PATCHES"]
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 VLM_PATCHES = 256  # vision-frontend stub: fixed patch-embedding prefix
@@ -44,6 +52,15 @@ def resolve_device(device: torch.device | str) -> torch.device:
             "to run the plain torch path on the CPU"
         )
     return dev
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE at float32.  logits: (B, S, V); labels: (B, S)
+    (already aligned)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll)
 
 
 class _Tree(nn.Module):
@@ -67,10 +84,11 @@ class _Tree(nn.Module):
 class Model(nn.Module):
     """A ported model.  ``params``: a tree of tensors with the spec tree's
     names and shapes (``convert.params_from`` builds one from the JAX
-    package's); without it the parameters are drawn by ``init_params`` from
-    ``generator`` (a fresh one seeded 0 on ``device`` if none is given).
-    ``dtype`` overrides the stored type of every parameter (the JAX package
-    stores float32 and casts at use)."""
+    package's), or ``{}`` for a model that holds none (training's, run
+    through ``loss``); without it the parameters are drawn by
+    ``init_params`` from ``generator`` (a fresh one seeded 0 on ``device``
+    if none is given).  ``dtype`` overrides the stored type of every
+    parameter (the JAX package stores float32 and casts at use)."""
 
     def __init__(
         self,
@@ -111,18 +129,38 @@ class Model(nn.Module):
     def n_params(self) -> int:
         return param_count(self.specs())
 
-    # ---- full forward ---------------------------------------------------
+    def init(self, generator: torch.Generator) -> dict:
+        """A float32 parameter tree on the model's device, drawn from
+        ``generator`` (which lives there) by ``init_params``."""
+        return init_params(self.specs(), generator, self.device)
+
+    def param_axes(self) -> dict:
+        return logical_axes(self.specs())
+
+    # ---- training / full forward ----------------------------------------
+    def _full(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(logits, aux) of the full sequence."""
+        cfg, ex = self.cfg, self.ex
+        if cfg.family == "ssm":
+            return ssm.ssm_forward(cfg, ex, params, batch)
+        if cfg.family == "hybrid":
+            return rglru.hybrid_forward(cfg, ex, params, batch)
+        if cfg.family == "encdec":
+            return encdec.encdec_forward(cfg, ex, params, batch)
+        return transformer.lm_forward(cfg, ex, params, batch)
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Next-token CE of ``logits[:, :-1]`` against ``labels[:, 1:]`` plus
+        ``moe_aux_coef`` x the MoE load-balance loss; returns (loss, {"ce",
+        "aux"}).  Runs with grad (the caller's mode): on ``attn_impl="xla"``
+        every op is differentiable."""
+        logits, aux = self._full(params, batch)
+        ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        return ce + self.ex.moe_aux_coef * aux, {"ce": ce, "aux": aux}
+
     @torch.no_grad()
     def forward(self, batch: dict) -> torch.Tensor:
-        if self.cfg.family == "ssm":
-            logits, _ = ssm.ssm_forward(self.cfg, self.ex, self.params, batch)
-        elif self.cfg.family == "hybrid":
-            logits, _ = rglru.hybrid_forward(self.cfg, self.ex, self.params, batch)
-        elif self.cfg.family == "encdec":
-            logits, _ = encdec.encdec_forward(self.cfg, self.ex, self.params, batch)
-        else:
-            logits, _ = transformer.lm_forward(self.cfg, self.ex, self.params, batch)
-        return logits
+        return self._full(self.params, batch)[0]
 
     # ---- serving --------------------------------------------------------
     @torch.no_grad()

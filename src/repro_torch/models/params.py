@@ -3,9 +3,10 @@
 Every model describes its parameters as a nested dict of
 :class:`ParamSpec` (shape, logical axes, initializer, dtype).  From one
 spec tree this module derives the materialised tensors
-(:func:`init_params`) and counts (:func:`param_count`).  The logical axes
-are kept so that the trees match the JAX package's name for name; the
-port shards nothing yet.
+(:func:`init_params`), counts (:func:`param_count`) and the logical-axes
+tree (:func:`logical_axes`, which training's ``train_state_axes`` reads).
+The logical axes are kept so that the trees match the JAX package's name
+for name; the port shards nothing yet.
 
 Logical axis names: ``layers`` (stacked-layer leading axis), ``embed``,
 ``heads``, ``kv``, ``mlp``, ``vocab``, ``expert``, ``state``, ``conv``,
@@ -20,7 +21,7 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["ParamSpec", "init_params", "map_specs", "param_count"]
+__all__ = ["ParamSpec", "init_params", "logical_axes", "map_specs", "param_count"]
 
 Initializer = str  # "normal" | "zeros" | "ones" | "embed" | "lecun" | "recurrent"
 
@@ -111,6 +112,11 @@ def init_params(
     stored type (the draws are made at float32 first; a stacked leaf a
     layer at a time)."""
     return map_specs(lambda _p, s: _init_one(s, generator, device, dtype), specs)
+
+
+def logical_axes(specs: Any) -> Any:
+    """The spec tree's logical axes, leaf for leaf."""
+    return map_specs(lambda _p, s: s.axes, specs)
 
 
 def param_count(specs: Any) -> int:

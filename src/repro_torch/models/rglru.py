@@ -6,13 +6,15 @@ positions stacked over *super-blocks* under ``super`` (``(n_super, ...)``),
 and the pattern's remainder, if any, under ``rest`` (``(1, ...)``).  A
 Python loop over super-blocks takes the place of ``lax.scan``.
 
-The prefill runs the RG-LRU scan through ``kernels.ops.rglru_scan`` and
-local attention through ``kernels.ops.flash_attention(window=...)`` (the
-kernels on CUDA tensors, their plain versions on CPU tensors).  Decode is
-bounded: a recurrent layer carries its conv tail and a float32 (B, W)
-state and runs ``ref.rglru_decode_step``; an attention layer keeps a
-ring-buffer KV cache of ``local_window`` slots and attends over it in plain
-torch (the JAX package runs no kernel there either).  Decode updates the
+The full-sequence forward runs the RG-LRU scan and local attention on
+``ExecConfig.attn_impl``'s route: ``"pallas"`` runs
+``kernels.ops.rglru_scan`` and ``kernels.ops.flash_attention(window=...)``
+(the kernels on CUDA tensors, their plain versions on CPU tensors),
+``"xla"`` (training's) ``ref.rglru_ref`` and ``layers.chunked_attention``.
+Decode is bounded: a recurrent layer carries its conv tail and a float32
+(B, W) state and runs ``ref.rglru_decode_step``; an attention layer keeps
+a ring-buffer KV cache of ``local_window`` slots and attends over it in
+plain torch (the JAX package runs no kernel there either).  Decode updates the
 state in place.
 """
 
@@ -30,7 +32,7 @@ from ..kernels import ref as kref
 from .layers import _NEG_INF, apply_rope, rms_norm, swiglu
 from .params import ParamSpec
 from .ssm import _causal_conv, _conv_step, _head
-from .transformer import ExecConfig, _layer, attn_specs, mlp_specs
+from .transformer import ExecConfig, _attn_dispatch, _layer, attn_specs, mlp_specs
 
 __all__ = ["hybrid_specs", "hybrid_forward", "hybrid_decode_step", "init_hybrid_state"]
 
@@ -107,7 +109,7 @@ def _block_diag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return y.reshape(B, S, W) + b.to(x.dtype)
 
 
-def _rec_block(cfg: ModelConfig, p: dict, h, *, state, return_state):
+def _rec_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, return_state):
     """Griffin recurrent block.  state: {'conv': (B, 3, W), 'h': (B, W)} or None."""
     dt = h.dtype
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
@@ -129,7 +131,8 @@ def _rec_block(cfg: ModelConfig, p: dict, h, *, state, return_state):
     i_gate = _block_diag(xc, p["wx"], p["bx"])
 
     if state is None:
-        out = ops.rglru_scan(xc, r_gate, i_gate, p["log_lambda"], return_state=return_state)
+        scan = ops.rglru_scan if ex.attn_impl == "pallas" else kref.rglru_ref
+        out = scan(xc, r_gate, i_gate, p["log_lambda"], return_state=return_state)
         if return_state:
             y, new_state["h"] = out
         else:
@@ -156,7 +159,7 @@ def _ring_positions(idx: int, window: int, device) -> torch.Tensor:
     return idx - torch.remainder(idx - s, window)
 
 
-def _attn_block(cfg: ModelConfig, p: dict, h, *, state, idx, return_state):
+def _attn_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, idx, return_state):
     """Local-attention block with a ring-buffer KV cache for decode.  state:
     {'ck', 'cv': (B, window, K, hd)} or None; decode writes slot
     ``idx mod window`` of both in place."""
@@ -174,7 +177,7 @@ def _attn_block(cfg: ModelConfig, p: dict, h, *, state, idx, return_state):
         pos = torch.arange(S, device=h.device)[None, :].expand(B, S)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-        out = ops.flash_attention(q, k, v, q_offset=0, causal=True, window=win)
+        out = _attn_dispatch(ex, q, k, v, causal=True, window=win)
         if return_state:
             # the ring from the last `window` positions; slots a short
             # prompt never reached hold position 0's k, v and are masked
@@ -218,10 +221,10 @@ def _ring_attention(q, ck, cv, ring_pos):
 # ---------------------------------------------------------------------------
 
 
-def _apply_kind(cfg, kind, p, h, *, state, idx, return_state):
+def _apply_kind(cfg, ex, kind, p, h, *, state, idx, return_state):
     if kind == "rec":
-        return _rec_block(cfg, p, h, state=state, return_state=return_state)
-    return _attn_block(cfg, p, h, state=state, idx=idx, return_state=return_state)
+        return _rec_block(cfg, ex, p, h, state=state, return_state=return_state)
+    return _attn_block(cfg, ex, p, h, state=state, idx=idx, return_state=return_state)
 
 
 def init_hybrid_state(cfg: ModelConfig, batch_size: int, dtype=None, device=None) -> dict:
@@ -259,19 +262,26 @@ def hybrid_forward(cfg: ModelConfig, ex: ExecConfig, params: dict, batch: dict, 
     """Full-sequence forward; every position's logits, as the JAX package
     computes them.  Returns (logits, aux) or (logits, aux, state), the
     state laid out as ``init_hybrid_state``'s."""
-    del ex  # no execution knob reaches the hybrid path
     h = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
     n_super, rest = _pattern_split(cfg)
+
+    def body(h, p_j):  # one super-block: the pattern's layers in order
+        sts = []
+        for i, kind in enumerate(cfg.block_pattern):
+            h, st = _apply_kind(cfg, ex, kind, p_j[str(i)], h, state=None, idx=None,
+                                return_state=return_state)
+            sts.append(st)
+        return h, sts
+
+    body = ex.remat_wrap(body)
     per_pos: dict[str, list] = {str(i): [] for i in range(len(cfg.block_pattern))}
     for j in range(n_super):
-        p_j = _layer(params["super"], j)
-        for i, kind in enumerate(cfg.block_pattern):
-            h, st = _apply_kind(cfg, kind, p_j[str(i)], h, state=None, idx=None,
-                                return_state=return_state)
+        h, sts = body(h, _layer(params["super"], j))
+        for i, st in enumerate(sts):
             per_pos[str(i)].append(st)
     rest_states = []
     for i, kind in enumerate(rest):
-        h, st = _apply_kind(cfg, kind, _layer(params["rest"][str(i)], 0), h, state=None,
+        h, st = _apply_kind(cfg, ex, kind, _layer(params["rest"][str(i)], 0), h, state=None,
                             idx=None, return_state=return_state)
         rest_states.append(st)
 
@@ -290,7 +300,6 @@ def hybrid_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, state: di
                        idx: int):
     """One decode token a row at position ``idx``.  Each layer's new state is
     written into ``state`` in place, which is returned with the logits."""
-    del ex
     h = params["embed"][tokens[:, None]].to(getattr(torch, cfg.dtype))
     n_super, rest = _pattern_split(cfg)
     layers = [(params["super"][str(i)], state["super"][str(i)], j, kind)
@@ -299,7 +308,7 @@ def hybrid_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, state: di
                for i, kind in enumerate(rest)]
     for p, st, j, kind in layers:
         layer_state = {k: v[j] for k, v in st.items()}
-        h, new = _apply_kind(cfg, kind, _layer(p, j), h, state=layer_state, idx=idx,
+        h, new = _apply_kind(cfg, ex, kind, _layer(p, j), h, state=layer_state, idx=idx,
                              return_state=False)
         for k, v in new.items():
             layer_state[k].copy_(v)  # a no-op for the ring caches, written in place

@@ -1,7 +1,9 @@
 """Mamba-2 (SSD — state-space duality, arXiv:2405.21060), attention-free LM.
 
-The prefill runs the chunked dual form through ``kernels.ops.ssd_scan``
-(the SSD kernel on CUDA tensors, its plain version on CPU tensors); decode
+The full-sequence forward runs the chunked dual form through
+``kernels.ops.ssd_scan`` on the ``"pallas"`` route (the SSD kernel on CUDA
+tensors, its plain version on CPU tensors) and through
+``ref.ssd_chunked_ref`` on the ``"xla"`` route (training's); decode
 carries an O(1) per-layer state (the last K-1 pre-conv inputs and the
 float32 SSD state) and runs ``ref.ssd_decode_step``.
 """
@@ -84,7 +86,7 @@ def _conv_step(state: torch.Tensor, x: torch.Tensor, w: torch.Tensor):
     return y, full[:, 1:]
 
 
-def _block(cfg: ModelConfig, p: dict, h, *, state, return_state):
+def _block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, return_state):
     """One mamba2 block.  h: (B, S, D).  state: one layer's dict or None."""
     di, nh, ng, ds = _dims(cfg)
     hp = cfg.ssm_head_dim
@@ -128,8 +130,15 @@ def _block(cfg: ModelConfig, p: dict, h, *, state, return_state):
     Cg = Cc.reshape(B_, S_, ng, ds)
 
     if state is None:
-        out = ops.ssd_scan(xh, dtp, A, Bg, Cg, Dskip, chunk=cfg.ssm_chunk,
-                           return_state=return_state)
+        if ex.attn_impl == "pallas":
+            out = ops.ssd_scan(xh, dtp, A, Bg, Cg, Dskip, chunk=cfg.ssm_chunk,
+                               return_state=return_state)
+        else:
+            chunk = min(cfg.ssm_chunk, S_)
+            while S_ % chunk:  # largest divisor of S not exceeding ssm_chunk
+                chunk -= 1
+            out = kref.ssd_chunked_ref(xh, dtp, A, Bg, Cg, Dskip, chunk=chunk,
+                                       return_state=return_state)
         if return_state:
             y, new_state["ssm"] = out
         else:
@@ -177,11 +186,12 @@ def ssm_forward(
 ):
     """Full-sequence forward.  Returns (logits, aux) or (logits, aux, state),
     the state stacked over layers as ``init_ssm_state`` lays it out."""
-    del ex  # no execution knob reaches the SSM path
     h = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
     sts = []
+    block = ex.remat_wrap(_block)
     for i in range(cfg.n_layers):
-        h, st = _block(cfg, _layer(params["blocks"], i), h, state=None, return_state=return_state)
+        h, st = block(cfg, ex, _layer(params["blocks"], i), h, state=None,
+                      return_state=return_state)
         sts.append(st)
     logits = _head(cfg, params, h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -194,11 +204,12 @@ def ssm_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, state: dict,
     """One decode token.  tokens: (B,); idx unused (the state is
     position-free).  Each layer's new state is written into ``state`` in
     place, which is returned with the logits."""
-    del ex, idx
+    del idx
     h = params["embed"][tokens[:, None]].to(getattr(torch, cfg.dtype))
     for i in range(cfg.n_layers):
         layer_state = {k: v[i] for k, v in state.items()}
-        h, new = _block(cfg, _layer(params["blocks"], i), h, state=layer_state, return_state=False)
+        h, new = _block(cfg, ex, _layer(params["blocks"], i), h, state=layer_state,
+                        return_state=False)
         for k, v in new.items():
             layer_state[k].copy_(v)
     return _head(cfg, params, h)[:, 0], state

@@ -2,9 +2,12 @@
 
 Layer-stacked parameters (a leading ``(L, ...)`` axis, the JAX package's
 tree), run by a Python loop over layers, and a KV-cache decode path.
-Attention goes through ``kernels.ops.flash_attention``: the tensors'
-device picks the flash kernel (CUDA) or its plain version (CPU) for full
-sequences, and decode runs ``layers.chunked_attention``.  The VLM takes
+Full-sequence attention goes through ``_attn_dispatch``: on the
+``"pallas"`` route (the default) ``kernels.ops.flash_attention``, whose
+tensors' device picks the flash kernel (CUDA) or its plain version (CPU);
+on the ``"xla"`` route ``layers.chunked_attention``, plain differentiable
+torch on any device, which training takes.  Decode runs
+``layers.chunked_attention``.  The VLM takes
 precomputed patch embeddings as a prefix of the token embeddings (the
 vision frontend is a stub, as in the JAX package) and 3-D (t, h, w)
 positions for M-RoPE.
@@ -13,29 +16,85 @@ positions for M-RoPE.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import apply_mrope, apply_rope, moe_aux_loss, moe_layer, rms_norm, swiglu
+from .layers import (
+    apply_mrope,
+    apply_rope,
+    chunked_attention,
+    moe_aux_loss,
+    moe_layer,
+    rms_norm,
+    swiglu,
+)
 from .params import ParamSpec
 
 __all__ = ["ExecConfig", "block_specs", "lm_specs", "lm_forward", "lm_decode_step", "init_cache"]
+
+
+# The products "dots" keeps for the backward: every matrix product's output
+# (einsum runs as these), as jax.checkpoint_policies.checkpoint_dots does.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default)
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecConfig:
     """Execution knobs orthogonal to the architecture.
 
-    ``kv_chunk`` bounds the keys a step of ``chunked_attention`` scores
-    (decode scores the whole cache at once, as the JAX package does);
-    ``attn_p_dtype`` is the type p and v are rounded to for p @ v there.
+    ``attn_impl`` picks the full-sequence route of attention and the two
+    scans: ``"pallas"`` (the default) runs ``kernels.ops``, the hand-written
+    kernel on CUDA tensors and its plain version on CPU tensors; ``"xla"``
+    runs the JAX package's XLA-branch functions (``chunked_attention``,
+    ``ref.ssd_chunked_ref``, ``ref.rglru_ref``) on any device.  The kernels
+    have no backward, so training takes ``"xla"``: a kernel asked to run on
+    inputs that require grad raises.  ``kv_chunk`` bounds the keys a step of
+    ``chunked_attention`` scores (decode scores the whole cache at once, as
+    the JAX package does); ``attn_p_dtype`` is the type p and v are rounded
+    to for p @ v there.  ``remat`` is activation checkpointing of each
+    layer's body under grad (a Griffin super-block's, as the JAX package
+    scans it): ``"none"``, ``"dots"`` (keep the matrix products' outputs,
+    recompute the rest) or ``"full"`` (keep the layer's inputs alone).
+    ``moe_aux_coef`` weighs the MoE load-balance loss in ``Model.loss``.
     """
 
+    attn_impl: str = "pallas"  # pallas | xla
     kv_chunk: int = 1024
+    remat: str = "full"  # none | dots | full
+    moe_aux_coef: float = 0.01
     attn_p_dtype: str = "float32"
+
+    def __post_init__(self) -> None:
+        if self.attn_impl not in ("pallas", "xla"):
+            raise ValueError(f"attn_impl {self.attn_impl!r}: want 'pallas' or 'xla'")
+        if self.remat not in ("none", "dots", "full"):
+            raise ValueError(f"remat {self.remat!r}: want 'none', 'dots' or 'full'")
+
+    def remat_wrap(self, fn):
+        """``fn`` under activation checkpointing when grad is on; without
+        grad nothing is kept for a backward, and ``fn`` runs as it is."""
+        if self.remat == "none":
+            return fn
+        context = (functools.partial(create_selective_checkpoint_contexts, list(_DOTS))
+                   if self.remat == "dots" else noop_context_fn)
+
+        def wrapped(*args, **kwargs):
+            if not torch.is_grad_enabled():
+                return fn(*args, **kwargs)
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=context, **kwargs)
+
+        return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +195,7 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
         k = apply_rope(k, pos, cfg.rope_theta)
 
     if cache is None:
-        out = ops.flash_attention(q, k, v, q_offset=0, causal=True, window=0)
+        out = _attn_dispatch(ex, q, k, v, causal=True, window=0)
         new_cache = (k, v)  # prefill fills the cache
     else:
         ck, cv = cache
@@ -151,6 +210,19 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
         )
         new_cache = (ck, cv)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), new_cache
+
+
+def _attn_dispatch(ex: ExecConfig, q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    """Full-sequence attention (q from position 0 against every key) on
+    ``ex.attn_impl``'s route; one query scores all T keys at once, as the
+    JAX package's decode does."""
+    S, T = q.shape[1], k.shape[1]
+    chunk = T if S == 1 else min(ex.kv_chunk, T)
+    if ex.attn_impl == "pallas":
+        return ops.flash_attention(q, k, v, q_offset=0, causal=causal, window=window,
+                                   kv_chunk=chunk, p_dtype=ex.attn_p_dtype)
+    return chunked_attention(q, k, v, q_offset=0, causal=causal, window=window, kv_chunk=chunk,
+                             p_dtype=ex.attn_p_dtype)
 
 
 def _block_apply(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, cache_idx):
@@ -204,7 +276,7 @@ def lm_forward(
     *,
     return_cache: bool = False,
 ):
-    """Full-sequence forward (prefill).
+    """Full-sequence forward (train / prefill).
 
     Returns (logits, aux_loss) or (logits, aux_loss, cache); the cache is
     the stacked ``(L, B, S, K, hd)`` K/V pair for decode continuation, and
@@ -214,9 +286,10 @@ def lm_forward(
     h, pos = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
+    block = ex.remat_wrap(_block_apply)
     for i in range(cfg.n_layers):
-        h, probs, (k, v) = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
-                                        cache=None, cache_idx=None)
+        h, probs, (k, v) = block(cfg, ex, _layer(params["blocks"], i), h, pos,
+                                 cache=None, cache_idx=None)
         if probs is not None:
             aux = aux + moe_aux_loss(probs, cfg.moe.top_k)
         if return_cache:
