@@ -129,7 +129,26 @@ Phases (each raises on failure, so any failure exits non-zero):
     layer (30, on the tensor cores) and agrees with the "xla" route's
     within 2e-2, the train step on "pallas" raises the wrapper's error, and
     kernel 3 is timed at this shape (S = T = 4096) beside its plain version
-    and SDPA.
+    and SDPA;
+15. (after phase 14) the dry-run and a 1-device mesh: (a) in processes of
+    their own, started together (host only, no card), the reduced (4, 2)
+    train cell of tests/test_dryrun_small.py for smollm-135m, mamba2-130m
+    and moonshot-v1-16b-a3b, and the single-pod (16, 16) cells smollm-135m
+    x train_4k / prefill_32k / decode_32k and moonshot-v1-16b-a3b x
+    train_4k at full width and depth, each traced on ``meta`` shards in a
+    fake 512-rank world: per-device FLOPs, bytes, collective bytes by op,
+    ``arg_bytes``, peak live bytes, the roofline terms against the JAX
+    package's modelled V5E fleet (data, not a measurement) and ``trace_s``;
+    (b) meanwhile, on the card, a world-1 NCCL group and a (1, 1) mesh:
+    one float32 AdamW step of full-width smollm-135m with the train state
+    and batch as DTensors against the same step on plain tensors (loss and
+    grad norm within 1e-6 relative; no kernel launched), and the dry-run's
+    ``arg_bytes`` of that cell against the card's allocation growth from
+    placing the state and batch (within 1%); (c) the shares of the H100 SXM
+    bf16 dense peak (989 TFLOP/s) of phase 14's train step and phase 10's
+    smollm-135m prefill: achieved TFLOP/s from their traced FLOPs and
+    measured times, ``mfu`` (6 or 2 N D over time x peak) and the traced
+    FLOPs' share, beside the card's name and power limit.
 
 Float32 matrix products run in full float32 on the card
 (``torch.backends.cuda.matmul.allow_tf32`` is set False, as is cuDNN's
@@ -140,7 +159,8 @@ after it (for phase 6, around the many-walk alone: it must launch the
 fleet-parallel kernel and never the single-instance one; for phase 10,
 around one ``generate``; for phase 13, around each run on the card; for
 phase 14, around (a)'s card step, (b)'s 30 steps (which must launch no
-kernel) and (d)'s no-grad loss on the "pallas" route; for
+kernel) and (d)'s no-grad loss on the "pallas" route; for phase 15, around
+(b)'s DTensor step, which must launch none; for
 phase 12, around the warm replans of (a)-(b)
 alone, around each call on the card's service in (c), around
 ``power_premium`` and around ``run_fault_injection`` in (d), where the warm
@@ -273,6 +293,14 @@ TRAIN = dict(arch="smollm-135m", seq_len=4096, batch=8, steps=30, lr=1e-3, shape
 TRAIN_CHECK = dict(seq_len=256, batch=2, lr=1e-3, rel_tol=1e-3)  # (a): float32, card vs CPU
 TRAIN_RESUME = dict(seq_len=1024, batch=4, steps=20, atol=1e-2)  # (c): resume at step 10
 TRAIN_ROUTE_TOL = 2e-2  # (d): the bf16 tolerance of the reference kernel tests
+
+# phase 15: the dry-run's cells, traced on the host (one process each,
+# started together); (a) the reduced (4, 2) train cell of
+# tests/test_dryrun_small.py and full-size cells on the single-pod mesh
+DRYRUN_SMALL = ("smollm-135m", "mamba2-130m", "moonshot-v1-16b-a3b")
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
+                ("smollm-135m", "decode_32k"), ("moonshot-v1-16b-a3b", "train_4k"))
+MESH_CHECK = dict(rel_tol=1e-6, bytes_rel_tol=0.01)  # (b): DTensor step vs plain; arg_bytes
 # launch.schedule's flags: its module docstring's (the JAX package's too),
 # and tests/test_cli.py's.
 SCHEDULE_ARGV = {
@@ -2185,6 +2213,181 @@ def phase_train_route(device, trained: dict) -> dict:
     return rec
 
 
+def _dryrun_job(job: tuple) -> dict:
+    """One phase-15 trace, run in a process of its own (no card): a
+    full-size dry-run cell, a reduced (4, 2) train cell, or a plain
+    one-device trace of a step the card times (phases 10 and 14)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.models import ExecConfig
+    from repro_torch.roofline import roofline_terms
+    from repro_torch.sharding import PRESETS
+
+    kind, arch, shape = job
+    t0 = time.perf_counter()
+    if kind == "cell":
+        row = dryrun.dryrun_cell(arch, shape, "single", verbose=False)
+    else:
+        cfg = get_arch(arch)
+        if kind == "small":
+            cfg = cfg.reduced()
+            with fake_world(8):
+                mesh = make_mesh((4, 2), ("data", "model"))
+                costs, trace_s = dryrun.trace_cell(cfg, InputShape("t", 32, 8, "train"), mesh,
+                                                   PRESETS["fsdp_tp_sp"],
+                                                   ex=ExecConfig(remat="full", attn_impl="xla"))
+        else:  # "step": one device, plain meta tensors
+            S, B, k = shape
+            costs, trace_s = dryrun.trace_cell(cfg, InputShape("chip", S, B, k))
+        terms = roofline_terms(costs.flops, costs.bytes, costs.total_coll_bytes)
+        row = {"arch": arch, "flops_per_device": costs.flops, "dot_flops_per_device":
+               costs.dot_flops, "hbm_bytes_per_device": costs.bytes,
+               "coll_bytes_per_device": costs.total_coll_bytes, "coll_per_op": costs.coll_bytes,
+               "arg_bytes": costs.arg_bytes, "temp_bytes": costs.peak_bytes,
+               "out_bytes": costs.out_bytes, "trace_s": trace_s,
+               **{f"{t}_s": v for t, v in terms.items()}}
+        if kind == "step":
+            row["model_flops"] = dryrun._model_flops(cfg, InputShape("chip", S, B, k))
+    row["job"], row["wall_s"] = list(job), time.perf_counter() - t0
+    return row
+
+
+def phase_mesh_one_device(device) -> dict:
+    """(b) A world-1 NCCL group and a (1, 1) mesh on the card: one float32
+    AdamW step of full-width smollm-135m (phase 14 (a)'s seq and batch)
+    with the train state and batch as DTensors under activation_sharding,
+    against the same step on plain tensors (loss and grad norm within
+    rel_tol); and the dry-run's per-device argument bytes for this cell on
+    this mesh against the card's allocation growth from placing the state
+    and batch (within bytes_rel_tol)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ExecConfig, Model
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import PRESETS, activation_sharding, batch_axes_tree, tree_shardings
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_train_state, train_state_axes
+
+    cfg = dataclasses.replace(get_arch(TRAIN["arch"]), dtype="float32")
+    ex = ExecConfig(attn_impl="xla", remat="full")
+    opt = AdamW(TRAIN_CHECK["lr"])
+    S, B = TRAIN_CHECK["seq_len"], TRAIN_CHECK["batch"]
+    model = Model(cfg, ex, params={}, device=device)
+    host = init_train_state(Model(cfg, ex, params={}, device="cpu"), opt,
+                            torch.Generator().manual_seed(0))
+    batch = _train_batch(cfg, S, B, 0, "cpu")
+    rules = PRESETS["fsdp_tp_sp"]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        costs, _ = trace_cell(cfg, InputShape("chip", S, B, "train"), mesh, rules, ex=ex)
+
+        def place(tree, axes):
+            pl = tree_shardings(tree, axes, mesh, rules)
+            return tree_map(lambda t, p: DTensor.from_local(t.to(device), mesh, p,
+                                                            run_check=False), tree, pl)
+
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(device)
+        d_state = place(host, train_state_axes(model))
+        d_batch = place(batch, batch_axes_tree(batch))
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated(device) - before
+        step = make_train_step(model, opt)
+
+        def sharded():
+            with activation_sharding(mesh, rules):
+                return step(d_state, d_batch)
+
+        (_, d_metrics), counts = _counted(sharded)
+        if any(_ml_launches(counts).values()):
+            raise AssertionError(f"mesh check: the DTensor step launched kernels {counts}")
+        _, p_metrics = step(tree_map(lambda t: t.to(device), host), _on(batch, device))
+        got = {k: float(d_metrics[k].full_tensor()) for k in ("loss", "grad_norm")}
+        want = {k: float(p_metrics[k]) for k in ("loss", "grad_norm")}
+    finally:
+        dist.destroy_process_group()
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in got}
+    bytes_rel = abs(grown - costs.arg_bytes) / costs.arg_bytes
+    rec = {"model": cfg.name, "dtype": "float32", "mesh": [1, 1], "backend": "nccl",
+           "seq_len": S, "batch": B, "dtensor": got, "plain": want, "rel_diff": rel,
+           "rel_tol": MESH_CHECK["rel_tol"], "dryrun_arg_bytes": costs.arg_bytes,
+           "allocated_growth_bytes": grown, "bytes_rel_diff": bytes_rel}
+    print("[mesh-1] " + json.dumps(rec), flush=True)
+    if max(rel.values()) > MESH_CHECK["rel_tol"] or not all(np.isfinite(list(got.values()))):
+        raise AssertionError(f"mesh check: DTensor step vs plain differ by {rel}")
+    if bytes_rel > MESH_CHECK["bytes_rel_tol"]:
+        raise AssertionError(f"mesh check: dry-run arg_bytes {costs.arg_bytes} vs allocated "
+                             f"{grown} ({bytes_rel:.4f} apart)")
+    del d_state, d_batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _share(name: str, row: dict, ms: float, card: str) -> dict:
+    """A timed step's shares of the H100 SXM bf16 dense peak from its traced
+    per-device FLOPs and its measured time."""
+    s = ms / 1e3
+    rec = {"step": name, "card": card, "ms": ms, "traced_flops": row["flops_per_device"],
+           "traced_dot_flops": row["dot_flops_per_device"], "model_flops": row["model_flops"],
+           "achieved_tflops": row["flops_per_device"] / s / 1e12,
+           "mfu": row["model_flops"] / (s * BF16_OPS_PER_S),
+           "traced_share_of_peak": row["flops_per_device"] / (s * BF16_OPS_PER_S),
+           "peak_flops": BF16_OPS_PER_S}
+    print("[shares] " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_dryrun(device, train_ms: float, prefill_ms: float, card: str) -> dict:
+    """Phase 15: (a) the dry-run's traces in processes of their own, started
+    together, while (b) runs on the card; then (c) the shares of phase 14's
+    train step and phase 10's smollm-135m prefill."""
+    import multiprocessing
+
+    jobs = ([("small", a, None) for a in DRYRUN_SMALL]
+            + [("cell", a, s) for a, s in DRYRUN_CELLS]
+            + [("step", TRAIN["arch"], (TRAIN["seq_len"], TRAIN["batch"], "train")),
+               ("step", "smollm-135m", (SERVE["prompt"], SERVE["batch"], "prefill"))])
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
+        pending = pool.map_async(_dryrun_job, jobs)
+        mesh = phase_mesh_one_device(device)
+        rows = pending.get(timeout=900)
+    wall = time.perf_counter() - t0
+    for row in rows:
+        kind = row["job"][0]
+        if row.get("status", "OK") != "OK":
+            raise AssertionError(f"dry-run {row['job']}: {row}")
+        if not (row["flops_per_device"] > 0 and row["arg_bytes"] > 0):
+            raise AssertionError(f"dry-run {row['job']}: no work or no arguments: {row}")
+        if kind != "step" and not row["coll_bytes_per_device"] > 0:
+            raise AssertionError(f"dry-run {row['job']}: sharded, but no collective: {row}")
+        row["terms_against"] = "V5E, the JAX package's modelled TPU v5e fleet: not a measurement"
+        print("[dryrun] " + json.dumps(row), flush=True)
+    steps = [r for r in rows if r["job"][0] == "step"]
+    shares = [_share("train step (phase 14)", steps[0], train_ms, card),
+              _share("smollm-135m prefill (phase 10)", steps[1], prefill_ms, card)]
+    print(f"[dryrun] phase 15 wall {wall:.1f} s", flush=True)
+    return {"rows": rows, "mesh": mesh, "shares": shares, "wall_s": wall}
+
+
+
 def main() -> int:
     import torch
 
@@ -2278,6 +2481,17 @@ def main() -> int:
         "card_vs_cpu_rel": train_check["rel_diff"],
         "resume_max_abs_diff": train_resume["max_abs_param_diff"],
         "route_launches": train_route["pallas_route_launches"]["flash_attention"]}), flush=True)
+
+    # phase 15: the dry-run (host traces) and a 1-device mesh on the card
+    dry = phase_dryrun(device, trained["rec"]["ms_per_step_median_4_30"],
+                       statistics.median(serve["smollm-135m"]["prefill_ms"]), card)
+    print("[dryrun-summary] " + json.dumps({
+        "card": card, "wall_s": dry["wall_s"],
+        "mesh_1_rel_diff": dry["mesh"]["rel_diff"],
+        "mesh_1_bytes_rel_diff": dry["mesh"]["bytes_rel_diff"],
+        "shares": {r["step"]: {k: r[k] for k in ("ms", "achieved_tflops", "mfu",
+                                                 "traced_share_of_peak")}
+                   for r in dry["shares"]}}), flush=True)
     del trained
 
     def served(kernel: str) -> int:  # launches over every served generate

@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from ..sharding.ctx import cumsum, einsum, reshape
+
 __all__ = [
     "attention_ref", "ssd_ref", "ssd_chunked_ref", "ssd_decode_step", "rglru_ref",
     "rglru_decode_step",
@@ -44,8 +46,8 @@ def attention_ref(
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     g = H // K
-    qf = q.float().reshape(B, S, K, g, hd) / math.sqrt(hd)
-    s = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    qf = reshape(q.float(), B, S, K, g, hd) / math.sqrt(hd)
+    s = einsum("bskgd,btkd->bkgst", qf, k.float())
     qpos = q_offset + torch.arange(S, device=q.device)
     kpos = torch.arange(T, device=q.device)
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -57,8 +59,8 @@ def attention_ref(
         mask = mask & (qpos[:, None] - kpos[None, :] < window)
     s = torch.where(mask, s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    out = einsum("bkgst,btkd->bskgd", p, v.float())
+    return reshape(out, B, S, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +90,8 @@ def ssd_ref(
     diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B, t, s, nh)
     tri = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
     Lmat = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
-    G = torch.einsum("bthd,bshd->btsh", Cf, Bf)
-    y = torch.einsum("btsh,bshp,bsh->bthp", G * Lmat, xf, dtf)
+    G = einsum("bthd,bshd->btsh", Cf, Bf)
+    y = einsum("btsh,bshp,bsh->bthp", G * Lmat, xf, dtf)
     y = y + xf * D.float()[None, None, :, None]
     return y.to(x.dtype)
 
@@ -121,25 +123,25 @@ def ssd_chunked_ref(
     if nc * chunk != S:
         raise ValueError(f"S = {S} is not a multiple of chunk = {chunk}")
 
-    xf = x.float().reshape(Bb, nc, chunk, nh, hp)
-    dtf = dt.float().reshape(Bb, nc, chunk, nh)
+    xf = reshape(x.float(), Bb, nc, chunk, nh, hp)
+    dtf = reshape(dt.float(), Bb, nc, chunk, nh)
     Af = A.float()
-    Bf = Bm.float().repeat_interleave(rep, dim=2).reshape(Bb, nc, chunk, nh, ds)
-    Cf = Cm.float().repeat_interleave(rep, dim=2).reshape(Bb, nc, chunk, nh, ds)
+    Bf = reshape(Bm.float().repeat_interleave(rep, dim=2), Bb, nc, chunk, nh, ds)
+    Cf = reshape(Cm.float().repeat_interleave(rep, dim=2), Bb, nc, chunk, nh, ds)
 
-    cum = torch.cumsum(dtf * Af[None, None, None, :], dim=2)  # within-chunk cumulative
+    cum = cumsum(dtf * Af[None, None, None, :], dim=2)  # within-chunk cumulative
     total = cum[:, :, -1, :]  # (B,nc,nh) — full-chunk log decay
 
     # --- intra-chunk (quadratic, per chunk) ---
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,t,s,nh)
     tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
     Lmat = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
-    G = torch.einsum("bcthd,bcshd->bctsh", Cf, Bf)
-    y_intra = torch.einsum("bctsh,bcshp,bcsh->bcthp", G * Lmat, xf, dtf)
+    G = einsum("bcthd,bcshd->bctsh", Cf, Bf)
+    y_intra = einsum("bctsh,bcshp,bcsh->bcthp", G * Lmat, xf, dtf)
 
     # --- chunk states: decay from position s to the end of its chunk ---
     dec_in = torch.exp(total[:, :, None, :] - cum)  # (B,nc,C,nh)
-    states = torch.einsum("bcshd,bcsh,bcshp->bchdp", Bf, dtf * dec_in, xf)
+    states = einsum("bcshd,bcsh,bcshp->bchdp", Bf, dtf * dec_in, xf)
 
     # --- inter-chunk recurrence over chunks ---
     dec_chunk = torch.exp(total)  # (B,nc,nh)
@@ -156,9 +158,9 @@ def ssd_chunked_ref(
 
     # --- inter-chunk output: y += C_t * decay(0..t) * state_in ---
     dec_out = torch.exp(cum)  # (B,nc,C,nh)
-    y_inter = torch.einsum("bcthd,bcth,bchdp->bcthp", Cf, dec_out, state_in)
+    y_inter = einsum("bcthd,bcth,bchdp->bcthp", Cf, dec_out, state_in)
 
-    y = (y_intra + y_inter).reshape(Bb, S, nh, hp)
+    y = reshape(y_intra + y_inter, Bb, S, nh, hp)
     y = y + x.float() * D.float()[None, None, :, None]
     y = y.to(x.dtype)
     if return_state:
@@ -181,9 +183,9 @@ def ssd_decode_step(
     Bf = Bm.float().repeat_interleave(rep, dim=1)  # (B,nh,ds)
     Cf = Cm.float().repeat_interleave(rep, dim=1)
     a = torch.exp(dtf * A.float()[None, :])  # (B,nh)
-    upd = torch.einsum("bhd,bhp->bhdp", Bf, xf * dtf[..., None])
+    upd = einsum("bhd,bhp->bhdp", Bf, xf * dtf[..., None])
     new_state = state * a[:, :, None, None] + upd
-    y = torch.einsum("bhd,bhdp->bhp", Cf, new_state)
+    y = einsum("bhd,bhdp->bhp", Cf, new_state)
     y = y + xf * D.float()[None, :, None]
     return y.to(x.dtype), new_state
 

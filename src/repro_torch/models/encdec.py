@@ -22,6 +22,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..sharding.ctx import einsum, embed_lookup, shard, write_slice
 from .layers import apply_rope, rms_norm, swiglu
 from .params import ParamSpec
 from .transformer import ExecConfig, _attn_dispatch, _layer, attn_specs, mlp_specs
@@ -63,7 +64,7 @@ def encdec_specs(cfg: ModelConfig) -> dict[str, Any]:
 
 
 def _proj(hn: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsd,dhk->bshk", hn, w.to(hn.dtype))
+    return einsum("bsd,dhk->bshk", hn, w.to(hn.dtype))
 
 
 def _proj_qkv(cfg: ModelConfig, a: dict, hn: torch.Tensor, pos: torch.Tensor):
@@ -71,11 +72,14 @@ def _proj_qkv(cfg: ModelConfig, a: dict, hn: torch.Tensor, pos: torch.Tensor):
     if cfg.rope == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv", None)
+    v = shard(v, "batch", "seq", "kv", None)
     return q, k, v
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, wo.to(o.dtype))
+    return einsum("bshk,hkd->bsd", o, wo.to(o.dtype))
 
 
 def _positions(h: torch.Tensor, start: int = 0) -> torch.Tensor:
@@ -89,11 +93,14 @@ def encode(cfg: ModelConfig, ex: ExecConfig, params: dict, enc_embeds: torch.Ten
     pos = _positions(h)
 
     def body(h, p):
+        h = shard(h, "batch", "act_seq", None)
         hn = rms_norm(h, p["ln1"], cfg.norm_eps)
         q, k, v = _proj_qkv(cfg, p["attn"], hn, pos)
         h = h + _out(_attn_dispatch(ex, q, k, v, causal=False, window=0), p["attn"]["wo"])
+        h = shard(h, "batch", "act_seq", None)
         hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-        return h + swiglu(hn2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+        h = h + swiglu(hn2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+        return shard(h, "batch", "act_seq", None)
 
     body = ex.remat_wrap(body)
     for i in range(cfg.enc_layers):
@@ -106,6 +113,7 @@ def _dec_block(cfg, ex, p, h, enc_out, pos, *, self_cache, cache_idx):
     this layer's precomputed cross ``(k, v)`` (decode).  With ``self_cache``
     (one layer's ``(B, T, K, hd)`` pair) the step's k and v are written into
     it in place at ``cache_idx``.  Returns (h, self (k, v), cross (k, v))."""
+    h = shard(h, "batch", "act_seq", None)
     # --- causal self-attention ---
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _proj_qkv(cfg, p["attn"], hn, pos)
@@ -115,8 +123,8 @@ def _dec_block(cfg, ex, p, h, enc_out, pos, *, self_cache, cache_idx):
     else:
         ck, cv = self_cache
         S, T = q.shape[1], ck.shape[1]
-        ck[:, cache_idx : cache_idx + S] = k.to(ck.dtype)
-        cv[:, cache_idx : cache_idx + S] = v.to(cv.dtype)
+        write_slice(ck, k.to(ck.dtype), cache_idx)
+        write_slice(cv, v.to(cv.dtype), cache_idx)
         out = ops.flash_attention(
             q, ck.to(q.dtype), cv.to(q.dtype), q_offset=cache_idx, kv_len=cache_idx + S,
             causal=True, window=0, kv_chunk=T if S == 1 else min(ex.kv_chunk, T),
@@ -138,12 +146,12 @@ def _dec_block(cfg, ex, p, h, enc_out, pos, *, self_cache, cache_idx):
     # --- MLP ---
     hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
     h = h + swiglu(hn2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
-    return h, new_self, (kx, vx)
+    return shard(h, "batch", "act_seq", None), new_self, (kx, vx)
 
 
 def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", h, params["lm_head"].to(h.dtype))
+    return einsum("bsd,dv->bsv", h, params["lm_head"].to(h.dtype))
 
 
 def encdec_forward(
@@ -159,7 +167,7 @@ def encdec_forward(
     the cache is ``{"self": (k, v), "cross": (k, v)}``, each stacked over
     the decoder layers, ``(L, B, S_dec, K, hd)`` and ``(L, B, S_enc, K, hd)``."""
     enc_out = encode(cfg, ex, params, batch["enc_embeds"])
-    h = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
+    h = embed_lookup(params["embed"], batch["tokens"]).to(getattr(torch, cfg.dtype))
     pos = _positions(h)
     kept: list[tuple] = []
     block = ex.remat_wrap(_dec_block)
@@ -193,7 +201,7 @@ def encdec_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, cache, to
     """One decoder token with cached self and cross attention: the token's
     self K/V is written at ``idx`` of every layer's cache, in place.
     Returns (logits, cache)."""
-    h = params["embed"][tokens[:, None]].to(getattr(torch, cfg.dtype))
+    h = embed_lookup(params["embed"], tokens[:, None]).to(getattr(torch, cfg.dtype))
     pos = _positions(h, idx)
     (sk, sv), (xk, xv) = cache["self"], cache["cross"]
     for i in range(cfg.n_layers):

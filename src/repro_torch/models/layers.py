@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding.ctx import einsum, reshape, rowwise, shard
+
 __all__ = [
     "rms_norm",
     "make_rope_freqs",
@@ -121,7 +123,7 @@ def chunked_attention(
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
 
-    qf = (q.float() * scale).reshape(B, S, K, g, hd)
+    qf = reshape(q.float() * scale, B, S, K, g, hd)
     nc = -(-T // kv_chunk)
     Tp = nc * kv_chunk
     if Tp != T:
@@ -138,7 +140,7 @@ def chunked_attention(
     for c in range(nc):
         c0 = c * kv_chunk
         kci, vci = k[:, c0 : c0 + kv_chunk], v[:, c0 : c0 + kv_chunk]
-        s = torch.einsum("bskgd,bckd->bkgsc", qf, kci.float())
+        s = einsum("bskgd,bckd->bkgsc", qf, kci.float())
         kpos = c0 + torch.arange(kv_chunk, device=dev)
         mask = kpos[None, :] < valid_len
         if causal:
@@ -150,13 +152,13 @@ def chunked_attention(
         p = torch.exp(s - mc[..., None])
         corr = torch.exp(m - mc)
         l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bkgsc,bckd->bkgsd", p.to(pdt).float(), vci.to(pdt).float())
+        pv = einsum("bkgsc,bckd->bkgsd", p.to(pdt).float(), vci.to(pdt).float())
         acc = acc * corr[..., None] + pv
         m = mc
 
     out = acc / torch.clamp(l[..., None], min=1e-30)  # (B, K, g, S, hd)
     out = out.permute(0, 3, 1, 2, 4)  # (B, S, K, g, hd)
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    return reshape(out, B, S, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -168,10 +170,11 @@ def swiglu(
     x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor
 ) -> torch.Tensor:
     dt = x.dtype
-    g = torch.einsum("bsd,df->bsf", x, w_gate.to(dt))
-    u = torch.einsum("bsd,df->bsf", x, w_up.to(dt))
+    g = einsum("bsd,df->bsf", x, w_gate.to(dt))
+    u = einsum("bsd,df->bsf", x, w_up.to(dt))
     h = F.silu(g.float()).to(dt) * u
-    return torch.einsum("bsf,fd->bsd", h, w_down.to(dt))
+    h = shard(h, "batch", "seq", "mlp")
+    return einsum("bsf,fd->bsd", h, w_down.to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -205,14 +208,37 @@ def moe_layer(
     logits and softmax, the top k renormalised, the (token, slot) pairs
     flattened token-major and stably sorted by expert, each expert's first
     ``capacity = ceil(S*k/E*cf)`` pairs kept and the rest dropped (written
-    to a sacrificial slot, their output zero).
+    to a sacrificial slot, their output zero).  The routing and the way
+    back are row-local (``rowwise``: on DTensors, each device's own rows).
     """
     B, S, D = x.shape
     E = router.shape[1]
-    dt, dev = x.dtype, x.device
+    dt = x.dtype
     capacity = max(1, int(math.ceil(S * top_k / E * capacity_factor)))
+    x = shard(x, "batch", "seq", None)
 
-    logits = torch.einsum("bsd,de->bse", x.float(), router.float())
+    probs, buf, *route = rowwise(_dispatch, (x,), (router,), top_k=top_k, capacity=capacity)
+    # the experts' slabs, every row's stacked: (E, B * capacity, D)
+    # Expert parallelism: each device runs only its local experts.
+    slab = shard(buf[:, :, :capacity].transpose(0, 1).reshape(E, B * capacity, D),
+                 "expert", None, None)
+    g = torch.bmm(slab, w_gate.to(dt))
+    u = torch.bmm(slab, w_up.to(dt))
+    h = shard(F.silu(g.float()).to(dt) * u, "expert", None, None)
+    y = shard(torch.bmm(h, w_down.to(dt)), "expert", None, None)
+    y = y.reshape(E, B, capacity, D).transpose(0, 1)
+
+    (out,) = rowwise(_combine, (y, *route), like=x, top_k=top_k)
+    return shard(out, "batch", "seq", None), shard(probs, "batch", "seq", None)
+
+
+def _dispatch(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int):
+    """Route each row: (probs, the (B, E, capacity + 1, D) expert buffer,
+    and the sorted pairs' expert, slot, keep, weight and order)."""
+    B, S, D = x.shape
+    E = router.shape[1]
+    dt, dev = x.dtype, x.device
+    logits = einsum("bsd,de->bse", x.float(), router.float())
     probs = torch.softmax(logits, dim=-1)  # (B, S, E)
     w, idx = _top_k(probs, top_k)  # (B, S, k)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
@@ -235,18 +261,19 @@ def moe_layer(
     x_sorted = torch.gather(x, 1, t_s[..., None].expand(B, SK, D))
     buf = torch.zeros((B, E, capacity + 1, D), dtype=dt, device=dev)
     buf[b_idx, e_s, pos_c] = x_sorted * keep[..., None].to(dt)
-    # the experts' slabs, every row's stacked: (E, B * capacity, D)
-    slab = buf[:, :, :capacity].transpose(0, 1).reshape(E, B * capacity, D)
-    g = torch.bmm(slab, w_gate.to(dt))
-    u = torch.bmm(slab, w_up.to(dt))
-    h = F.silu(g.float()).to(dt) * u
-    y = torch.bmm(h, w_down.to(dt)).reshape(E, B, capacity, D).transpose(0, 1)
+    return probs, buf, e_s, pos, keep, w_s, order
 
-    # back to the pairs (a dropped pair reads slot 0 and is zeroed), then
-    # to token-major order, and each token's k outputs summed
-    y_pair = y[b_idx, e_s, torch.where(keep, pos, 0)] * (keep * w_s)[..., None].to(dt)
+
+def _combine(y, e_s, pos, keep, w_s, order, *, top_k: int):
+    """The experts' outputs (B, E, capacity, D) back to the pairs (a dropped
+    pair reads slot 0 and is zeroed), then to token-major order, and each
+    token's k outputs summed: (B, S, D)."""
+    B, SK = e_s.shape
+    D = y.shape[-1]
+    b_idx = torch.arange(B, device=y.device)[:, None]
+    y_pair = y[b_idx, e_s, torch.where(keep, pos, 0)] * (keep * w_s)[..., None].to(y.dtype)
     y_tok = torch.empty_like(y_pair).scatter_(1, order[..., None].expand(B, SK, D), y_pair)
-    return y_tok.reshape(B, S, top_k, D).sum(dim=2), probs
+    return (y_tok.reshape(B, SK // top_k, top_k, D).sum(dim=2),)
 
 
 def moe_aux_loss(probs: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -257,8 +284,13 @@ def moe_aux_loss(probs: torch.Tensor, top_k: int) -> torch.Tensor:
     """
     E = probs.shape[-1]
     flat = probs.reshape(-1, E)
-    _, idx = _top_k(flat, top_k)
-    hard = torch.zeros_like(flat).scatter_(1, idx, 1.0)
+    (hard,) = rowwise(_hard_top_k, (flat,), top_k=top_k)
     frac = hard.mean(dim=0) / top_k
     mean_prob = flat.mean(dim=0)
     return E * torch.sum(frac * mean_prob)
+
+
+def _hard_top_k(flat: torch.Tensor, *, top_k: int) -> tuple[torch.Tensor]:
+    """Each row's top-k assignment as 0 / 1."""
+    _, idx = _top_k(flat, top_k)
+    return (torch.zeros_like(flat).scatter_(1, idx, 1.0),)

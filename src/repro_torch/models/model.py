@@ -17,6 +17,11 @@ training's weights are the train state's):
 * ``init``         — a float32 parameter tree drawn from a generator
 * ``param_axes``   — the logical-axes tree
 
+and the dry-run's abstract builders, meta tensors of the JAX package's
+shapes and dtypes that allocate nothing: ``Model.abstract_params`` /
+``abstract_state`` and ``train_batch_specs`` / ``prefill_batch_specs`` /
+``decode_input_specs``.
+
 It dispatches on ``cfg.family``: ``dense``, ``moe`` and ``vlm`` to
 ``transformer``, ``ssm`` to ``ssm``, ``hybrid`` to ``rglru``, ``encdec`` to
 ``encdec``.  The parameters live on ``device``, ``"cuda"`` unless the
@@ -32,11 +37,22 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..configs.shapes import InputShape
+from ..sharding.ctx import gather_for_use, take_last
 from . import encdec, rglru, ssm, transformer
-from .params import init_params, logical_axes, param_count
+from .params import abstract_params, init_params, logical_axes, param_count
 from .transformer import ExecConfig
 
-__all__ = ["Model", "ExecConfig", "cross_entropy", "resolve_device", "VLM_PATCHES"]
+__all__ = [
+    "Model",
+    "ExecConfig",
+    "cross_entropy",
+    "resolve_device",
+    "train_batch_specs",
+    "prefill_batch_specs",
+    "decode_input_specs",
+    "VLM_PATCHES",
+]
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 VLM_PATCHES = 256  # vision-frontend stub: fixed patch-embedding prefix
@@ -58,9 +74,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE at float32.  logits: (B, S, V); labels: (B, S)
     (already aligned)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    return torch.mean(lse - ll)
+    # log-sum-exp about the (constant) row max, as jax.nn.logsumexp takes
+    # it: on vocab-sharded DTensor logits the max and the sum reduce across
+    # devices, where torch.logsumexp would gather the rows whole
+    m = torch.amax(lf.detach(), dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    ll = take_last(lf, labels.long())  # (B, S, 1)
+    return torch.mean(lse[..., None] - ll)
 
 
 class _Tree(nn.Module):
@@ -129,6 +149,15 @@ class Model(nn.Module):
     def n_params(self) -> int:
         return param_count(self.specs())
 
+    def abstract_params(self, dtype: str | None = None) -> dict:
+        """The parameter tree as meta tensors, of the specs' stored dtypes
+        or all of ``dtype`` (a name, e.g. "bfloat16")."""
+        tree = abstract_params(self.specs())
+        if dtype is None:
+            return tree
+        dt = getattr(torch, dtype)
+        return _map(lambda t: torch.empty(t.shape, dtype=dt, device="meta"), tree)
+
     def init(self, generator: torch.Generator) -> dict:
         """A float32 parameter tree on the model's device, drawn from
         ``generator`` (which lives there) by ``init_params``."""
@@ -141,6 +170,7 @@ class Model(nn.Module):
     def _full(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits, aux) of the full sequence."""
         cfg, ex = self.cfg, self.ex
+        params = _for_use(params)
         if cfg.family == "ssm":
             return ssm.ssm_forward(cfg, ex, params, batch)
         if cfg.family == "hybrid":
@@ -166,21 +196,22 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: dict):
         """Returns (last_token_logits, decode_state)."""
+        params = _for_use(self.params)
         if self.cfg.family == "ssm":
             logits, _, state = ssm.ssm_forward(
-                self.cfg, self.ex, self.params, batch, return_state=True
+                self.cfg, self.ex, params, batch, return_state=True
             )
         elif self.cfg.family == "hybrid":
             logits, _, state = rglru.hybrid_forward(
-                self.cfg, self.ex, self.params, batch, return_state=True
+                self.cfg, self.ex, params, batch, return_state=True
             )
         elif self.cfg.family == "encdec":
             logits, _, state = encdec.encdec_forward(
-                self.cfg, self.ex, self.params, batch, return_cache=True
+                self.cfg, self.ex, params, batch, return_cache=True
             )
         else:
             logits, _, state = transformer.lm_forward(
-                self.cfg, self.ex, self.params, batch, return_cache=True
+                self.cfg, self.ex, params, batch, return_cache=True
             )
         return logits[:, -1].clone(), state  # a copy: the (B, S, V) logits are freed
 
@@ -188,31 +219,98 @@ class Model(nn.Module):
     def decode_step(self, state, tokens: torch.Tensor, idx: int):
         """One token a row at cache position ``idx``; returns (logits,
         state).  The state is updated in place and returned."""
+        params = _for_use(self.params)
         if self.cfg.family == "ssm":
-            return ssm.ssm_decode_step(self.cfg, self.ex, self.params, state, tokens, int(idx))
+            return ssm.ssm_decode_step(self.cfg, self.ex, params, state, tokens, int(idx))
         if self.cfg.family == "hybrid":
-            return rglru.hybrid_decode_step(self.cfg, self.ex, self.params, state, tokens,
-                                            int(idx))
+            return rglru.hybrid_decode_step(self.cfg, self.ex, params, state, tokens, int(idx))
         if self.cfg.family == "encdec":
-            return encdec.encdec_decode_step(self.cfg, self.ex, self.params, state, tokens,
-                                             int(idx))
-        return transformer.lm_decode_step(self.cfg, self.ex, self.params, state, tokens, int(idx))
+            return encdec.encdec_decode_step(self.cfg, self.ex, params, state, tokens, int(idx))
+        return transformer.lm_decode_step(self.cfg, self.ex, params, state, tokens, int(idx))
 
     def init_state(self, batch_size: int, max_len: int, enc_len: int | None = None):
         """The zero decode state; an enc-dec model's cross cache holds
         ``enc_len`` encoder positions (``max_len`` if not given)."""
-        if self.cfg.family == "ssm":
-            return ssm.init_ssm_state(self.cfg, batch_size, device=self.device)
-        if self.cfg.family == "hybrid":  # fixed-size: max_len is not used
-            return rglru.init_hybrid_state(self.cfg, batch_size, device=self.device)
-        if self.cfg.family == "encdec":
-            return encdec.init_encdec_cache(self.cfg, batch_size, max_len, enc_len or max_len,
-                                            device=self.device)
-        return transformer.init_cache(self.cfg, batch_size, max_len, device=self.device)
+        return _init_state(self.cfg, batch_size, max_len, enc_len, self.device)
+
+    def abstract_state(self, batch_size: int, max_len: int, enc_len: int | None = None):
+        """``init_state``'s tree as meta tensors."""
+        return _init_state(self.cfg, batch_size, max_len, enc_len, torch.device("meta"))
+
+
+def _for_use(params: dict) -> dict:
+    """The top-level weights (embedding, head, final norms) as the model
+    uses them (``gather_for_use``: FSDP shards gathered under
+    ``activation_sharding``, the identity otherwise); the layer stacks are
+    gathered a layer at a time by ``transformer._layer``."""
+    return {k: v if isinstance(v, dict) else gather_for_use(v) for k, v in params.items()}
+
+
+def _init_state(cfg: ModelConfig, batch_size: int, max_len: int, enc_len: int | None, device):
+    if cfg.family == "ssm":
+        return ssm.init_ssm_state(cfg, batch_size, device=device)
+    if cfg.family == "hybrid":  # fixed-size: max_len is not used
+        return rglru.init_hybrid_state(cfg, batch_size, device=device)
+    if cfg.family == "encdec":
+        return encdec.init_encdec_cache(cfg, batch_size, max_len, enc_len or max_len,
+                                        device=device)
+    return transformer.init_cache(cfg, batch_size, max_len, device=device)
+
+
+def _map(fn, tree: dict) -> dict:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def _to(tree: dict, device: torch.device, dtype: torch.dtype | None) -> dict:
     return {
         k: _to(v, device, dtype) if isinstance(v, dict) else v.to(device=device, dtype=dtype)
         for k, v in tree.items()
+    }
+
+
+# ---------------------------------------------------------------------------
+# Abstract input builders (meta tensors: no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype: str) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=getattr(torch, dtype), device="meta")
+
+
+def train_batch_specs(cfg: ModelConfig, shape: InputShape) -> dict[str, Any]:
+    B, S = shape.global_batch, shape.seq_len
+    emb_dt = cfg.dtype
+    if cfg.family == "encdec":
+        return {
+            "enc_embeds": _meta((B, S, cfg.d_model), emb_dt),
+            "tokens": _meta((B, S), "int32"),
+            "labels": _meta((B, S), "int32"),
+        }
+    if cfg.family == "vlm":
+        P = VLM_PATCHES
+        return {
+            "tokens": _meta((B, S - P), "int32"),
+            "patch_embeds": _meta((B, P, cfg.d_model), emb_dt),
+            "positions": _meta((B, S, 3), "int32"),
+            "labels": _meta((B, S), "int32"),
+        }
+    return {
+        "tokens": _meta((B, S), "int32"),
+        "labels": _meta((B, S), "int32"),
+    }
+
+
+def prefill_batch_specs(cfg: ModelConfig, shape: InputShape) -> dict[str, Any]:
+    specs = train_batch_specs(cfg, shape)
+    specs.pop("labels")
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, shape: InputShape) -> dict[str, Any]:
+    """Inputs for one serve_step: new token ids + fill index + state."""
+    B, T = shape.global_batch, shape.seq_len
+    return {
+        "tokens": _meta((B,), "int32"),
+        "idx": _meta((), "int32"),
+        "state": _init_state(cfg, B, T, min(T, 4096), torch.device("meta")),
     }

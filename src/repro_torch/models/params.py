@@ -3,10 +3,11 @@
 Every model describes its parameters as a nested dict of
 :class:`ParamSpec` (shape, logical axes, initializer, dtype).  From one
 spec tree this module derives the materialised tensors
-(:func:`init_params`), counts (:func:`param_count`) and the logical-axes
-tree (:func:`logical_axes`, which training's ``train_state_axes`` reads).
-The logical axes are kept so that the trees match the JAX package's name
-for name; the port shards nothing yet.
+(:func:`init_params`), the abstract tree of meta tensors
+(:func:`abstract_params`: shapes and dtypes, no allocation), counts
+(:func:`param_count`, :func:`param_bytes`) and the logical-axes tree
+(:func:`logical_axes`, which ``repro_torch.sharding`` turns into DTensor
+placements).
 
 Logical axis names: ``layers`` (stacked-layer leading axis), ``embed``,
 ``heads``, ``kv``, ``mlp``, ``vocab``, ``expert``, ``state``, ``conv``,
@@ -21,7 +22,15 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["ParamSpec", "init_params", "logical_axes", "map_specs", "param_count"]
+__all__ = [
+    "ParamSpec",
+    "init_params",
+    "logical_axes",
+    "abstract_params",
+    "param_bytes",
+    "param_count",
+    "map_specs",
+]
 
 Initializer = str  # "normal" | "zeros" | "ones" | "embed" | "lecun" | "recurrent"
 
@@ -119,12 +128,31 @@ def logical_axes(specs: Any) -> Any:
     return map_specs(lambda _p, s: s.axes, specs)
 
 
+def abstract_params(specs: Any, device: torch.device | str = "meta") -> Any:
+    """The spec tree as empty tensors of its shapes and stored dtypes on
+    ``device`` ("meta": nothing is allocated)."""
+    return map_specs(
+        lambda _p, s: torch.empty(s.shape, dtype=getattr(torch, s.dtype), device=device), specs
+    )
+
+
 def param_count(specs: Any) -> int:
     total = 0
 
     def add(_p: tuple[str, ...], s: ParamSpec) -> None:
         nonlocal total
         total += math.prod(s.shape)
+
+    map_specs(add, specs)
+    return total
+
+
+def param_bytes(specs: Any) -> int:
+    total = 0
+
+    def add(_p: tuple[str, ...], s: ParamSpec) -> None:
+        nonlocal total
+        total += math.prod(s.shape) * getattr(torch, s.dtype).itemsize
 
     map_specs(add, specs)
     return total

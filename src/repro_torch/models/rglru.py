@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels import ref as kref
+from ..sharding.ctx import einsum, embed_lookup, reshape, shard, write_slice
 from .layers import _NEG_INF, apply_rope, rms_norm, swiglu
 from .params import ParamSpec
 from .ssm import _causal_conv, _conv_step, _head
@@ -105,18 +106,20 @@ def _block_diag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     """x: (B, S, W) @ block-diag w: (nb, wb, wb) + b."""
     B, S, W = x.shape
     nb, wb = w.shape[0], w.shape[1]
-    y = torch.einsum("bsnw,nwv->bsnv", x.reshape(B, S, nb, wb), w.to(x.dtype))
-    return y.reshape(B, S, W) + b.to(x.dtype)
+    y = einsum("bsnw,nwv->bsnv", reshape(x, B, S, nb, wb), w.to(x.dtype))
+    return reshape(y, B, S, W) + b.to(x.dtype)
 
 
 def _rec_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, return_state):
     """Griffin recurrent block.  state: {'conv': (B, 3, W), 'h': (B, W)} or None."""
     dt = h.dtype
+    h = shard(h, "batch", "act_seq", None)
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     # jax.nn.gelu's default is the tanh approximation
-    gate = F.gelu(torch.einsum("bsd,dw->bsw", hn, p["w_gate_br"].to(dt)).float(),
+    gate = F.gelu(einsum("bsd,dw->bsw", hn, p["w_gate_br"].to(dt)).float(),
                   approximate="tanh").to(dt)
-    xr = torch.einsum("bsd,dw->bsw", hn, p["w_rec_br"].to(dt))
+    gate = shard(gate, "batch", "seq", "state")
+    xr = shard(einsum("bsd,dw->bsw", hn, p["w_rec_br"].to(dt)), "batch", "seq", "state")
 
     new_state = {}
     if state is None:
@@ -144,11 +147,13 @@ def _rec_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, return_st
         y = y1[:, None]
 
     y = y * gate
-    h = h + torch.einsum("bsw,wd->bsd", y, p["w_out"].to(dt))
+    h = shard(h + einsum("bsw,wd->bsd", y, p["w_out"].to(dt)), "batch", "act_seq", None)
     hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
     m = p["mlp"]
     h = h + swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
-    return h, (new_state if (state is not None or return_state) else None)
+    return shard(h, "batch", "act_seq", None), (
+        new_state if (state is not None or return_state) else None
+    )
 
 
 def _ring_positions(idx: int, window: int, device) -> torch.Tensor:
@@ -165,11 +170,12 @@ def _attn_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, idx, ret
     ``idx mod window`` of both in place."""
     dt = h.dtype
     win = cfg.local_window
+    h = shard(h, "batch", "act_seq", None)
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     a = p["attn"]
-    q = torch.einsum("bsd,dhk->bshk", hn, a["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", hn, a["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", hn, a["wv"].to(dt))
+    q = shard(einsum("bsd,dhk->bshk", hn, a["wq"].to(dt)), "batch", "seq", "heads", None)
+    k = shard(einsum("bsd,dhk->bshk", hn, a["wk"].to(dt)), "batch", "seq", "kv", None)
+    v = shard(einsum("bsd,dhk->bshk", hn, a["wv"].to(dt)), "batch", "seq", "kv", None)
 
     new_state = {}
     B, S = hn.shape[0], hn.shape[1]
@@ -190,16 +196,18 @@ def _attn_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, idx, ret
         k = apply_rope(k, pos, cfg.rope_theta)
         ck, cv = state["ck"], state["cv"]
         slot = idx % win
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
+        write_slice(ck, k.to(ck.dtype), slot)
+        write_slice(cv, v.to(cv.dtype), slot)
         new_state["ck"], new_state["cv"] = ck, cv
         out = _ring_attention(q, ck, cv, _ring_positions(idx, win, h.device))
 
-    h = h + torch.einsum("bshk,hkd->bsd", out, a["wo"].to(dt))
+    h = shard(h + einsum("bshk,hkd->bsd", out, a["wo"].to(dt)), "batch", "act_seq", None)
     hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
     m = p["mlp"]
     h = h + swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
-    return h, (new_state if (state is not None or return_state) else None)
+    return shard(h, "batch", "act_seq", None), (
+        new_state if (state is not None or return_state) else None
+    )
 
 
 def _ring_attention(q, ck, cv, ring_pos):
@@ -208,12 +216,12 @@ def _ring_attention(q, ck, cv, ring_pos):
     ring_pos < 0 are masked out."""
     B, S, H, hd = q.shape
     K = ck.shape[2]
-    qf = q.float().reshape(B, S, K, H // K, hd) / math.sqrt(hd)
-    s = torch.einsum("bskgd,btkd->bkgst", qf, ck.float())
+    qf = reshape(q.float(), B, S, K, H // K, hd) / math.sqrt(hd)
+    s = einsum("bskgd,btkd->bkgst", qf, ck.float())
     s = torch.where(ring_pos >= 0, s, _NEG_INF)
     pr = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", pr, cv.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    out = einsum("bkgst,btkd->bskgd", pr, cv.float())
+    return reshape(out, B, S, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +270,7 @@ def hybrid_forward(cfg: ModelConfig, ex: ExecConfig, params: dict, batch: dict, 
     """Full-sequence forward; every position's logits, as the JAX package
     computes them.  Returns (logits, aux) or (logits, aux, state), the
     state laid out as ``init_hybrid_state``'s."""
-    h = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
+    h = embed_lookup(params["embed"], batch["tokens"]).to(getattr(torch, cfg.dtype))
     n_super, rest = _pattern_split(cfg)
 
     def body(h, p_j):  # one super-block: the pattern's layers in order
@@ -300,7 +308,7 @@ def hybrid_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, state: di
                        idx: int):
     """One decode token a row at position ``idx``.  Each layer's new state is
     written into ``state`` in place, which is returned with the logits."""
-    h = params["embed"][tokens[:, None]].to(getattr(torch, cfg.dtype))
+    h = embed_lookup(params["embed"], tokens[:, None]).to(getattr(torch, cfg.dtype))
     n_super, rest = _pattern_split(cfg)
     layers = [(params["super"][str(i)], state["super"][str(i)], j, kind)
               for j in range(n_super) for i, kind in enumerate(cfg.block_pattern)]

@@ -18,11 +18,12 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels import ref as kref
+from ..sharding.ctx import channelwise, einsum, embed_lookup, reshape, shard
 from .layers import rms_norm
 from .params import ParamSpec
 from .transformer import ExecConfig, _layer
 
-__all__ = ["ssm_specs", "ssm_forward", "ssm_decode_step", "init_ssm_state"]
+__all__ = ["ssm_specs", "ssm_forward", "ssm_decode_step", "init_ssm_state", "abstract_ssm_state"]
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
@@ -69,7 +70,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv.  x: (B, S, C), w: (K, C).
 
     The K-tap shifted sum, in the JAX package's order of summation (and not
-    ``F.conv1d``, which cuDNN runs in TF32 for float32 by default)."""
+    ``F.conv1d``, which cuDNN runs in TF32 for float32 by default); on
+    DTensors, on each device's channels (``channelwise``)."""
+    return channelwise(_causal_conv_local, x, w)
+
+
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     K = w.shape[0]
     pad = F.pad(x, (0, 0, K - 1, 0))
     S = x.shape[1]
@@ -82,7 +88,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _conv_step(state: torch.Tensor, x: torch.Tensor, w: torch.Tensor):
     """Single-token conv.  state: (B, K-1, C), x: (B, C).  -> (y, new_state)."""
     full = torch.cat([state, x[:, None]], dim=1)  # (B, K, C)
-    y = torch.einsum("bkc,kc->bc", full, w.to(x.dtype))
+    y = einsum("bkc,kc->bc", full, w.to(x.dtype))
     return y, full[:, 1:]
 
 
@@ -91,13 +97,14 @@ def _block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, return_state)
     di, nh, ng, ds = _dims(cfg)
     hp = cfg.ssm_head_dim
     dt_ = h.dtype
+    h = shard(h, "batch", "act_seq", None)
     hn = rms_norm(h, p["ln"], cfg.norm_eps)
 
-    z = torch.einsum("bsd,de->bse", hn, p["w_z"].to(dt_))
-    x = torch.einsum("bsd,de->bse", hn, p["w_x"].to(dt_))
-    Bm = torch.einsum("bsd,de->bse", hn, p["w_B"].to(dt_))
-    Cm = torch.einsum("bsd,de->bse", hn, p["w_C"].to(dt_))
-    dt = torch.einsum("bsd,dh->bsh", hn, p["w_dt"].to(dt_))
+    z = shard(einsum("bsd,de->bse", hn, p["w_z"].to(dt_)), "batch", "seq", "mlp")
+    x = shard(einsum("bsd,de->bse", hn, p["w_x"].to(dt_)), "batch", "seq", "mlp")
+    Bm = shard(einsum("bsd,de->bse", hn, p["w_B"].to(dt_)), "batch", "seq", "state")
+    Cm = shard(einsum("bsd,de->bse", hn, p["w_C"].to(dt_)), "batch", "seq", "state")
+    dt = shard(einsum("bsd,dh->bsh", hn, p["w_dt"].to(dt_)), "batch", "seq", None)
 
     new_state = {}
     if state is None:
@@ -125,9 +132,9 @@ def _block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, return_state)
     Dskip = p["Dskip"].float()
 
     B_, S_ = xc.shape[0], xc.shape[1]
-    xh = xc.reshape(B_, S_, nh, hp)
-    Bg = Bc.reshape(B_, S_, ng, ds)
-    Cg = Cc.reshape(B_, S_, ng, ds)
+    xh = reshape(xc, B_, S_, nh, hp)
+    Bg = reshape(Bc, B_, S_, ng, ds)
+    Cg = reshape(Cc, B_, S_, ng, ds)
 
     if state is None:
         if ex.attn_impl == "pallas":
@@ -149,11 +156,13 @@ def _block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, return_state)
         )
         y = y1[:, None]
 
-    y = y.reshape(B_, S_, di)
+    y = reshape(y, B_, S_, di)
     y = y * F.silu(z.float()).to(dt_)
-    y = rms_norm(y, p["gn"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["w_out"].to(dt_))
-    return h + out, (new_state if (state is not None or return_state) else None)
+    y = shard(rms_norm(y, p["gn"], cfg.norm_eps), "batch", "seq", "mlp")
+    out = einsum("bse,ed->bsd", y, p["w_out"].to(dt_))
+    return shard(h + out, "batch", "act_seq", None), (
+        new_state if (state is not None or return_state) else None
+    )
 
 
 def init_ssm_state(cfg: ModelConfig, batch_size: int, dtype=None, device=None) -> dict:
@@ -171,9 +180,15 @@ def init_ssm_state(cfg: ModelConfig, batch_size: int, dtype=None, device=None) -
     }
 
 
+def abstract_ssm_state(cfg: ModelConfig, batch_size: int, dtype=None) -> dict:
+    """``init_ssm_state``'s tree as meta tensors: its shapes and dtypes, no
+    allocation."""
+    return init_ssm_state(cfg, batch_size, dtype, device="meta")
+
+
 def _head(cfg: ModelConfig, params: dict, h) -> torch.Tensor:
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", h, params["lm_head"].to(h.dtype))
+    return einsum("bsd,dv->bsv", h, params["lm_head"].to(h.dtype))
 
 
 def ssm_forward(
@@ -186,7 +201,7 @@ def ssm_forward(
 ):
     """Full-sequence forward.  Returns (logits, aux) or (logits, aux, state),
     the state stacked over layers as ``init_ssm_state`` lays it out."""
-    h = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
+    h = embed_lookup(params["embed"], batch["tokens"]).to(getattr(torch, cfg.dtype))
     sts = []
     block = ex.remat_wrap(_block)
     for i in range(cfg.n_layers):
@@ -205,7 +220,7 @@ def ssm_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, state: dict,
     position-free).  Each layer's new state is written into ``state`` in
     place, which is returned with the logits."""
     del idx
-    h = params["embed"][tokens[:, None]].to(getattr(torch, cfg.dtype))
+    h = embed_lookup(params["embed"], tokens[:, None]).to(getattr(torch, cfg.dtype))
     for i in range(cfg.n_layers):
         layer_state = {k: v[i] for k, v in state.items()}
         h, new = _block(cfg, ex, _layer(params["blocks"], i), h, state=layer_state,

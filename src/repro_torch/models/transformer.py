@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..sharding.ctx import einsum, embed_lookup, gather_for_use, mesh_axis_size, shard, write_slice
 from .layers import (
     apply_mrope,
     apply_rope,
@@ -66,12 +67,20 @@ class ExecConfig:
     scans it): ``"none"``, ``"dots"`` (keep the matrix products' outputs,
     recompute the rest) or ``"full"`` (keep the layer's inputs alone).
     ``moe_aux_coef`` weighs the MoE load-balance loss in ``Model.loss``.
+    ``cp_attention`` is context-parallel attention under an
+    ``activation_sharding`` context: the query sequence shards over
+    'model' when the head count does not divide that axis (smollm's 9
+    heads on a 16-wide axis would otherwise replicate all attention work
+    16x); ``"auto"`` decides on the mesh, ``"on"`` / ``"off"`` force it.
+    Outside a context ``shard`` is the identity and the knob changes
+    nothing.
     """
 
     attn_impl: str = "pallas"  # pallas | xla
     kv_chunk: int = 1024
     remat: str = "full"  # none | dots | full
     moe_aux_coef: float = 0.01
+    cp_attention: str = "auto"  # auto | on | off
     attn_p_dtype: str = "float32"
 
     def __post_init__(self) -> None:
@@ -79,6 +88,8 @@ class ExecConfig:
             raise ValueError(f"attn_impl {self.attn_impl!r}: want 'pallas' or 'xla'")
         if self.remat not in ("none", "dots", "full"):
             raise ValueError(f"remat {self.remat!r}: want 'none', 'dots' or 'full'")
+        if self.cp_attention not in ("auto", "on", "off"):
+            raise ValueError(f"cp_attention {self.cp_attention!r}: want 'auto', 'on' or 'off'")
 
     def remat_wrap(self, fn):
         """``fn`` under activation checkpointing when grad is on; without
@@ -169,8 +180,11 @@ def lm_specs(cfg: ModelConfig) -> dict[str, Any]:
 
 
 def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i``'s slice of a stacked ``(L, ...)`` parameter tree (views)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+    """Layer ``i``'s slice of a stacked ``(L, ...)`` parameter tree (views;
+    under ``activation_sharding``, gathered over the batch's mesh axes for
+    use, ZeRO-3's all-gather of FSDP shards)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else gather_for_use(v[i])
+            for k, v in tree.items()}
 
 
 def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cache_idx):
@@ -180,13 +194,26 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
     are written into it in place at ``cache_idx`` and it is returned.
     """
     dt = hn.dtype
-    q = torch.einsum("bsd,dhk->bshk", hn, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", hn, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", hn, p["wv"].to(dt))
+    q = einsum("bsd,dhk->bshk", hn, p["wq"].to(dt))
+    k = einsum("bsd,dhk->bshk", hn, p["wk"].to(dt))
+    v = einsum("bsd,dhk->bshk", hn, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    # Context-parallel attention: when heads don't fill the 'model' axis,
+    # shard the query sequence over it instead, so scores go
+    # (B, K, g, S/model, T) a device rather than replicated.
+    tp = mesh_axis_size("model")
+    cp = ex.cp_attention == "on" or (
+        ex.cp_attention == "auto"
+        and tp is not None
+        and cache is None  # full-sequence paths only
+        and cfg.n_heads % tp != 0
+    )
+    q = shard(q, "batch", "act_seq" if cp else "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv", None)
+    v = shard(v, "batch", "seq", "kv", None)
     if cfg.rope == "mrope":
         q = apply_mrope(q, pos, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, pos, cfg.rope_theta, cfg.mrope_sections)
@@ -200,8 +227,8 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
     else:
         ck, cv = cache
         S = q.shape[1]
-        ck[:, cache_idx : cache_idx + S] = k.to(ck.dtype)
-        cv[:, cache_idx : cache_idx + S] = v.to(cv.dtype)
+        write_slice(ck, k.to(ck.dtype), cache_idx)
+        write_slice(cv, v.to(cv.dtype), cache_idx)
         T = ck.shape[1]
         out = ops.flash_attention(
             q, ck.to(dt), cv.to(dt), q_offset=cache_idx, kv_len=cache_idx + S,
@@ -209,7 +236,7 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
             p_dtype=ex.attn_p_dtype,
         )
         new_cache = (ck, cv)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), new_cache
+    return einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), new_cache
 
 
 def _attn_dispatch(ex: ExecConfig, q, k, v, *, causal: bool, window: int) -> torch.Tensor:
@@ -227,9 +254,11 @@ def _attn_dispatch(ex: ExecConfig, q, k, v, *, causal: bool, window: int) -> tor
 
 def _block_apply(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, cache_idx):
     """One block.  Returns (h, router probs or None, cache)."""
+    h = shard(h, "batch", "act_seq", None)
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     attn_out, new_cache = _attention(cfg, ex, p["attn"], hn, pos, cache=cache, cache_idx=cache_idx)
     h = h + attn_out
+    h = shard(h, "batch", "act_seq", None)
     hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
     probs = None
     if cfg.family == "moe":
@@ -239,17 +268,18 @@ def _block_apply(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, ca
     else:
         m = p["mlp"]
         y = swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
-    return h + y, probs, new_cache
+    return shard(h + y, "batch", "act_seq", None), probs, new_cache
 
 
 def _logits(cfg: ModelConfig, params: dict, h) -> torch.Tensor:
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", h, head.to(h.dtype))
+    logits = einsum("bsd,dv->bsv", h, head.to(h.dtype))
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    return embed_lookup(params["embed"], tokens).to(getattr(torch, cfg.dtype))
 
 
 def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -259,6 +289,7 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Te
     h = _embed(cfg, params, batch["tokens"])
     if cfg.modality == "vision" and "patch_embeds" in batch:
         h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+    h = shard(h, "batch", "act_seq", None)
     pos = batch.get("positions")
     if pos is None:
         B, S = h.shape[0], h.shape[1]
