@@ -76,7 +76,8 @@ Phases (each raises on failure, so any failure exits non-zero):
     tensor-core kernel) and no other launch; the prefill's last logits
     through the kernels beside those through their plain versions (for the
     MoE model also the tokens whose expert set differs); prefill ms, decode
-    ms a token, tokens/s and the device split;
+    ms a token, tokens/s and the device split; for the MoE model also the
+    prefill and decode ms under ``moe_impl="batched"`` on the same weights;
 11. the six models at full width in float32 on the card and on the CPU
     (the plain path) with the same weights, at full depth but for
     moonshot-v1-16b-a3b's 2 of 48 layers (112 GB of float32 weights fit
@@ -84,7 +85,10 @@ Phases (each raises on failure, so any failure exits non-zero):
     and 64 tokens; seamless-m4t-large-v2: 128 frames and 128 tokens) and 4
     decode steps fed the same tokens, logits compared, the card's float32
     prefill on the CUDA-core flash and SSD kernels; for the MoE model the
-    tokens routed to another expert set on the card than on the CPU;
+    tokens routed to another expert set on the card than on the CPU, and
+    the same prefill and decode steps on the card under
+    ``moe_impl="batched"``, greedy tokens equal to "vmap"'s and logits
+    within 1e-5 of max |logit|;
 12. (run after phase 7) the service path, at the JAX package's bench sizes
     (``benchmarks/scheduler_scale.py``, nothing cut), on ``engine="cuda"``:
     (a) ``bench_replan``'s arrival leg (the deep instance recorded
@@ -133,18 +137,28 @@ Phases (each raises on failure, so any failure exits non-zero):
 15. (after phase 14) the dry-run and a 1-device mesh: (a) in processes of
     their own, started together (host only, no card), the reduced (4, 2)
     train cell of tests/test_dryrun_small.py for smollm-135m, mamba2-130m
-    and moonshot-v1-16b-a3b, and the single-pod (16, 16) cells smollm-135m
-    x train_4k / prefill_32k / decode_32k and moonshot-v1-16b-a3b x
-    train_4k at full width and depth, each traced on ``meta`` shards in a
-    fake 512-rank world: per-device FLOPs, bytes, collective bytes by op,
-    ``arg_bytes``, peak live bytes, the roofline terms against the JAX
-    package's modelled V5E fleet (data, not a measurement) and ``trace_s``;
+    and moonshot-v1-16b-a3b, the single-pod (16, 16) cells smollm-135m x
+    train_4k / prefill_32k / decode_32k and moonshot-v1-16b-a3b x train_4k
+    under both ``moe_impl``s, and recurrentgemma-2b x decode_32k on the
+    multi-pod (2, 16, 16) mesh, at full width and depth, each traced on
+    ``meta`` shards in a fake 512-rank world: per-device FLOPs, bytes,
+    collective bytes by op (all-to-alls included), ``arg_bytes``, peak
+    live bytes, the roofline terms against the JAX package's modelled V5E
+    fleet (data, not a measurement) and ``trace_s``; moonshot's two
+    layouts side by side with their useful shares (6ND/256 over the FLOPs),
+    "batched" at most 3.0e14 FLOPs a device and 5x fewer than "vmap"; and
+    smollm-135m x train_4k's counts beside torch 2.13's (``F3_TORCH_213``),
+    each within 1%;
     (b) meanwhile, on the card, a world-1 NCCL group and a (1, 1) mesh:
     one float32 AdamW step of full-width smollm-135m with the train state
     and batch as DTensors against the same step on plain tensors (loss and
     grad norm within 1e-6 relative; no kernel launched), and the dry-run's
     ``arg_bytes`` of that cell against the card's allocation growth from
-    placing the state and batch (within 1%); (c) the shares of the H100 SXM
+    placing the state and batch (within 1%); then the same step of
+    full-width moonshot-v1-16b-a3b cut to 2 of its 48 layers under
+    ``moe_impl="batched"`` (within 1e-6; no kernel; a (1, 1) mesh replicates
+    everything, so this holds the DTensor path on NCCL, not the expert
+    split, which tests/test_torch_sharding.py's gloo case holds); (c) the shares of the H100 SXM
     bf16 dense peak (989 TFLOP/s) of phase 14's train step and phase 10's
     smollm-135m prefill: achieved TFLOP/s from their traced FLOPs and
     measured times, ``mfu`` (6 or 2 N D over time x peak) and the traced
@@ -283,6 +297,9 @@ CHECK = dict(batch=2, prompt=128, steps=4, rel_tol=1e-3)
 # Phase 11 cuts moonshot-v1-16b-a3b to 2 of its 48 layers at full width:
 # 112 GB of float32 weights fit neither the card nor the host.
 CHECK_LAYERS = {"moonshot-v1-16b-a3b": 2}
+# ... and serves it on the card under both MoE layouts: greedy tokens equal,
+# logits within this share of max |logit|
+MOE_LAYOUT_REL_TOL = 1e-5
 # The vision stub's patch grid: 16 x 16 = VLM_PATCHES patches in phase 10,
 # 8 x 8 in phase 11's 128-position prompts.
 SERVE_GRID, CHECK_GRID = 16, 8
@@ -296,11 +313,34 @@ TRAIN_ROUTE_TOL = 2e-2  # (d): the bf16 tolerance of the reference kernel tests
 
 # phase 15: the dry-run's cells, traced on the host (one process each,
 # started together); (a) the reduced (4, 2) train cell of
-# tests/test_dryrun_small.py and full-size cells on the single-pod mesh
+# tests/test_dryrun_small.py and full-size cells (arch, shape, mesh,
+# moe_impl): smollm-135m's three kinds and moonshot-v1-16b-a3b's training
+# under both MoE layouts on the single pod, recurrentgemma-2b's decode on
+# the multi-pod mesh (its Griffin gates' partial sum; full depth)
 DRYRUN_SMALL = ("smollm-135m", "mamba2-130m", "moonshot-v1-16b-a3b")
-DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
-                ("smollm-135m", "decode_32k"), ("moonshot-v1-16b-a3b", "train_4k"))
+DRYRUN_CELLS = (("smollm-135m", "train_4k", "single", "vmap"),
+                ("smollm-135m", "prefill_32k", "single", "vmap"),
+                ("smollm-135m", "decode_32k", "single", "vmap"),
+                ("moonshot-v1-16b-a3b", "train_4k", "single", "vmap"),
+                ("moonshot-v1-16b-a3b", "train_4k", "single", "batched"),
+                ("recurrentgemma-2b", "decode_32k", "multi", "vmap"))
+# "batched" must trace moonshot's training at most this many FLOPs a device
+# and this many times fewer than "vmap" (6ND/256 = 9.8e13; the recompute,
+# the capacity factor and attention's score products on top)
+MOE_BATCHED_MAX_FLOPS, MOE_BATCHED_MIN_GAIN = 3.0e14, 5.0
+# smollm-135m x train_4k on the single pod as torch 2.13 (a CPU host)
+# traces it, by experiments/dryrun_by_op.py: the card host's torch must
+# trace each count within F3_REL_TOL of these (tests/test_torch_dryrun.py
+# holds the CPU's torch to them too, so a change that moves them shows)
+F3_TORCH_213 = {"flops": 8687119788781.0, "bytes": 1367589988992.0, "peak_bytes": 14965719316.0,
+                "coll_all-gather": 360422928.0, "coll_all-reduce": 7430568.0,
+                "coll_reduce-scatter": 4146455808.0, "coll_all-to-all": 1937768448.0,
+                "coll_collective-permute": 0.0}
+F3_REL_TOL = 0.01
 MESH_CHECK = dict(rel_tol=1e-6, bytes_rel_tol=0.01)  # (b): DTensor step vs plain; arg_bytes
+# (b)'s MoE step: moonshot-v1-16b-a3b at full width, 2 of its 48 layers (as
+# phase 11 cuts it), float32, under moe_impl="batched"
+MESH_MOE_LAYERS = 2
 # launch.schedule's flags: its module docstring's (the JAX package's too),
 # and tests/test_cli.py's.
 SCHEDULE_ARGV = {
@@ -1771,8 +1811,9 @@ def _routed(run):
     routes = []
     real = transformer.moe_layer
 
-    def spy(x, router, *w, top_k, capacity_factor):
-        out, probs = real(x, router, *w, top_k=top_k, capacity_factor=capacity_factor)
+    def spy(x, router, *w, top_k, capacity_factor, impl):
+        out, probs = real(x, router, *w, top_k=top_k, capacity_factor=capacity_factor,
+                          impl=impl)
         routes.append(layers._top_k(probs, top_k)[1].sort(dim=-1).values.cpu())
         return out, probs
 
@@ -1880,9 +1921,8 @@ def phase_serve(name: str, device) -> dict:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.models import Model
-    from repro_torch.serve import ServeConfig, ServeEngine, make_decode_step, make_prefill_step
-    from repro_torch.serve.engine import _pad_cache_to
+    from repro_torch.models import ExecConfig, Model
+    from repro_torch.serve import ServeConfig, ServeEngine
 
     cfg = get_arch(name)
     want = _expected_launches(cfg)
@@ -1915,25 +1955,7 @@ def phase_serve(name: str, device) -> dict:
     if tuple(out.shape) != (B, new) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
         raise AssertionError(f"serve {name}: tokens {tuple(out.shape)} out of range")
 
-    prefill, decode = make_prefill_step(model), make_decode_step(model)
-    prefill_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        last, state = prefill(batch)
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t0) * 1e3)
-    if not bool(torch.isfinite(last.float()).all()):
-        raise AssertionError(f"serve {name}: prefill logits are not finite")
-    state = _pad_cache_to(state, cfg.family, S + new)
-    tok = torch.argmax(last, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(1, new):
-        logits, state = decode(state, tok, S + t - 1)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / (new - 1)
+    prefill_ms, decode_ms = _prefill_decode_ms(model, batch, S, new)
     rec = {
         "model": name, "layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
         "d_model": cfg.d_model, "vocab": cfg.vocab,
@@ -1947,10 +1969,44 @@ def phase_serve(name: str, device) -> dict:
         "device_us": _device_split(lambda: (engine.generate(batch, 8), torch.cuda.synchronize()),
                                    kernels=tuple(k for n in want for k in KERNEL_SYMBOLS[n])),
     }
+    if cfg.family == "moe":  # the other layout of the experts' slots, on the same weights
+        batched = Model(cfg, ExecConfig(moe_impl="batched"), params=model.params, device=device)
+        ms = _prefill_decode_ms(batched, batch, S, new)
+        rec["moe_impl_batched"] = {"prefill_ms": ms[0], "decode_ms_per_token": ms[1]}
+        del batched
     print("[serve] " + json.dumps(rec), flush=True)
-    del model, engine, state
+    del model, engine
     torch.cuda.empty_cache()
     return rec
+
+
+def _prefill_decode_ms(model, batch: dict, S: int, new: int) -> tuple[list, float]:
+    """Three timed prefills, then ``new - 1`` greedy decode steps: (the
+    prefills' ms, the steps' mean ms)."""
+    import torch
+
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve.engine import _pad_cache_to
+
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, state = prefill(batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(last.float()).all()):
+        raise AssertionError(f"serve {model.cfg.name}: prefill logits are not finite")
+    state = _pad_cache_to(state, model.cfg.family, S + new)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(1, new):
+        logits, state = decode(state, tok, S + t - 1)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return prefill_ms, (time.perf_counter() - t0) * 1e3 / (new - 1)
 
 
 def phase_serve_check(name: str, device) -> dict:
@@ -1990,13 +2046,17 @@ def phase_serve_check(name: str, device) -> dict:
     errs, scales = [], []
     pairs = [(g_last, c_last)]
     step = torch.argmax(c_last, dim=-1).to(torch.int32)
+    fed = []
     for t in range(steps):
+        fed.append(step)
         (g_log, g_state), g_routes = _routed(
             lambda: gpu.decode_step(g_state, step.to(device), S + t))
         (c_log, c_state), c_routes = _routed(lambda: cpu.decode_step(c_state, step, S + t))
         pairs.append((g_log, c_log))
         routes.append((g_routes, c_routes))
         step = torch.argmax(c_log, dim=-1).to(torch.int32)
+    moe_layouts = (_moe_layouts_agree(cfg, gpu, batch, S, fed, [g for g, _ in pairs], device)
+                   if cfg.family == "moe" else None)
     for g, c in pairs:
         g = g.float().cpu()
         errs.append(float((g - c).abs().max()))
@@ -2011,9 +2071,41 @@ def phase_serve_check(name: str, device) -> dict:
            "rel_tol": CHECK["rel_tol"]}
     if cfg.family == "moe":  # the card's routes against the CPU's, prefill then each step
         rec["routes_card_vs_cpu"] = [_route_diff(g, c) for g, c in routes]
+        rec["moe_impl_batched_vs_vmap"] = moe_layouts
     print("[serve-check] " + json.dumps(rec), flush=True)
     del gpu, cpu, g_state, c_state
     torch.cuda.empty_cache()
+    return rec
+
+
+def _moe_layouts_agree(cfg, vmap, batch: dict, S: int, fed: list, logits: list,
+                       device) -> dict:
+    """The MoE model on the card under moe_impl="batched", on the "vmap"
+    model's weights: the prefill and the decode steps fed the same tokens,
+    each step's greedy tokens equal to "vmap"'s and its logits within
+    MOE_LAYOUT_REL_TOL of max |logit|."""
+    import torch
+
+    from repro_torch.models import ExecConfig, Model
+    from repro_torch.serve.engine import _pad_cache_to
+
+    model = Model(cfg, ExecConfig(moe_impl="batched"), params=vmap.params, device=device)
+    last, state = model.prefill(_on(batch, device))
+    got = [last]
+    state = _pad_cache_to(state, cfg.family, S + len(fed))
+    for t, step in enumerate(fed):
+        log, state = model.decode_step(state, step.to(device), S + t)
+        got.append(log)
+    errs, same = [], []
+    for g, v in zip(got, logits, strict=True):
+        g, v = g.float().cpu(), v.float().cpu()
+        errs.append(float((g - v).abs().max()) / float(v.abs().max()))
+        same.append(bool(torch.equal(torch.argmax(g, dim=-1), torch.argmax(v, dim=-1))))
+    rec = {"rel_err_by_step": errs, "greedy_equal_by_step": same,
+           "rel_tol": MOE_LAYOUT_REL_TOL}
+    if not all(same) or max(errs) > MOE_LAYOUT_REL_TOL:
+        raise AssertionError(f"serve check {cfg.name}: moe_impl='batched' against 'vmap' {rec}")
+    del model, state
     return rec
 
 
@@ -2232,7 +2324,10 @@ def _dryrun_job(job: tuple) -> dict:
     kind, arch, shape = job
     t0 = time.perf_counter()
     if kind == "cell":
-        row = dryrun.dryrun_cell(arch, shape, "single", verbose=False)
+        shape, mesh, moe_impl = shape
+        ex = ExecConfig(remat=get_arch(arch).remat, attn_impl="xla", moe_impl=moe_impl)
+        row = dryrun.dryrun_cell(arch, shape, mesh, ex=ex, verbose=False)
+        row["moe_impl"] = moe_impl
     else:
         cfg = get_arch(arch)
         if kind == "small":
@@ -2258,19 +2353,68 @@ def _dryrun_job(job: tuple) -> dict:
     return row
 
 
+def _dtensor_step(step, mesh, rules, model, state, batch, device) -> tuple[dict, int]:
+    """One train step with ``state`` and ``batch`` placed on the card as
+    DTensors (tensors already there keep their storage) under
+    activation_sharding: its loss and grad norm, and the card's allocation
+    growth from placing them."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch._tree import tree_map
+    from repro_torch.sharding import activation_sharding, batch_axes_tree, tree_shardings
+    from repro_torch.train.step import train_state_axes
+
+    def place(tree, axes):
+        pl = tree_shardings(tree, axes, mesh, rules)
+        return tree_map(lambda t, p: DTensor.from_local(t.to(device), mesh, p, run_check=False),
+                        tree, pl)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    d_state = place(state, train_state_axes(model))
+    d_batch = place(batch, batch_axes_tree(batch))
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+
+    def sharded():
+        with activation_sharding(mesh, rules):
+            return step(d_state, d_batch)
+
+    (_, metrics), counts = _counted(sharded)
+    if any(_ml_launches(counts).values()):
+        raise AssertionError(f"mesh check {model.cfg.name}: the DTensor step launched kernels "
+                             f"{counts}")
+    return {k: float(metrics[k].full_tensor()) for k in ("loss", "grad_norm")}, grown
+
+
+def _mesh_record(name: str, cfg, ex, S: int, B: int, got: dict, want: dict, **extra) -> dict:
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in got}
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "moe_impl": ex.moe_impl,
+           "dtype": "float32", "mesh": [1, 1], "backend": "nccl", "seq_len": S, "batch": B,
+           "dtensor": got, "plain": want, "rel_diff": rel, "rel_tol": MESH_CHECK["rel_tol"],
+           **extra}
+    print(f"[{name}] " + json.dumps(rec), flush=True)
+    if max(rel.values()) > MESH_CHECK["rel_tol"] or not all(np.isfinite(list(got.values()))):
+        raise AssertionError(f"mesh check {cfg.name}: DTensor step vs plain differ by {rel}")
+    return rec
+
+
 def phase_mesh_one_device(device) -> dict:
     """(b) A world-1 NCCL group and a (1, 1) mesh on the card: one float32
     AdamW step of full-width smollm-135m (phase 14 (a)'s seq and batch)
     with the train state and batch as DTensors under activation_sharding,
     against the same step on plain tensors (loss and grad norm within
-    rel_tol); and the dry-run's per-device argument bytes for this cell on
+    rel_tol), and the dry-run's per-device argument bytes for this cell on
     this mesh against the card's allocation growth from placing the state
-    and batch (within bytes_rel_tol)."""
+    and batch (within bytes_rel_tol); then the same step of full-width
+    moonshot-v1-16b-a3b cut to MESH_MOE_LAYERS layers under
+    moe_impl="batched", its state drawn on the card."""
     import dataclasses
 
     import torch
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
 
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_arch
@@ -2279,9 +2423,9 @@ def phase_mesh_one_device(device) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import ExecConfig, Model
     from repro_torch.optim import AdamW
-    from repro_torch.sharding import PRESETS, activation_sharding, batch_axes_tree, tree_shardings
+    from repro_torch.sharding import PRESETS
     from repro_torch.train import make_train_step
-    from repro_torch.train.step import init_train_state, train_state_axes
+    from repro_torch.train.step import init_train_state
 
     cfg = dataclasses.replace(get_arch(TRAIN["arch"]), dtype="float32")
     ex = ExecConfig(attn_impl="xla", remat="full")
@@ -2296,46 +2440,35 @@ def phase_mesh_one_device(device) -> dict:
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
         costs, _ = trace_cell(cfg, InputShape("chip", S, B, "train"), mesh, rules, ex=ex)
-
-        def place(tree, axes):
-            pl = tree_shardings(tree, axes, mesh, rules)
-            return tree_map(lambda t, p: DTensor.from_local(t.to(device), mesh, p,
-                                                            run_check=False), tree, pl)
-
-        gc.collect()
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated(device)
-        d_state = place(host, train_state_axes(model))
-        d_batch = place(batch, batch_axes_tree(batch))
-        torch.cuda.synchronize()
-        grown = torch.cuda.memory_allocated(device) - before
         step = make_train_step(model, opt)
-
-        def sharded():
-            with activation_sharding(mesh, rules):
-                return step(d_state, d_batch)
-
-        (_, d_metrics), counts = _counted(sharded)
-        if any(_ml_launches(counts).values()):
-            raise AssertionError(f"mesh check: the DTensor step launched kernels {counts}")
+        got, grown = _dtensor_step(step, mesh, rules, model, host, batch, device)
         _, p_metrics = step(tree_map(lambda t: t.to(device), host), _on(batch, device))
-        got = {k: float(d_metrics[k].full_tensor()) for k in ("loss", "grad_norm")}
         want = {k: float(p_metrics[k]) for k in ("loss", "grad_norm")}
+        bytes_rel = abs(grown - costs.arg_bytes) / costs.arg_bytes
+        rec = _mesh_record("mesh-1", cfg, ex, S, B, got, want,
+                           dryrun_arg_bytes=costs.arg_bytes, allocated_growth_bytes=grown,
+                           bytes_rel_diff=bytes_rel)
+        if bytes_rel > MESH_CHECK["bytes_rel_tol"]:
+            raise AssertionError(f"mesh check: dry-run arg_bytes {costs.arg_bytes} vs allocated "
+                                 f"{grown} ({bytes_rel:.4f} apart)")
+        del host, p_metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        moe_cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b"), dtype="float32",
+                                      n_layers=MESH_MOE_LAYERS)
+        moe_ex = ExecConfig(attn_impl="xla", remat="full", moe_impl="batched")
+        moe_model = Model(moe_cfg, moe_ex, params={}, device=device)
+        moe_state = init_train_state(moe_model, opt, torch.Generator(device).manual_seed(0))
+        moe_batch = _on(_train_batch(moe_cfg, S, B, 0, "cpu"), device)
+        moe_step = make_train_step(moe_model, opt)
+        got, _ = _dtensor_step(moe_step, mesh, rules, moe_model, moe_state, moe_batch, device)
+        _, p_metrics = moe_step(moe_state, moe_batch)
+        rec["moe"] = _mesh_record("mesh-1-moe", moe_cfg, moe_ex, S, B, got,
+                                  {k: float(p_metrics[k]) for k in ("loss", "grad_norm")})
+        del moe_state, p_metrics
     finally:
         dist.destroy_process_group()
-    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in got}
-    bytes_rel = abs(grown - costs.arg_bytes) / costs.arg_bytes
-    rec = {"model": cfg.name, "dtype": "float32", "mesh": [1, 1], "backend": "nccl",
-           "seq_len": S, "batch": B, "dtensor": got, "plain": want, "rel_diff": rel,
-           "rel_tol": MESH_CHECK["rel_tol"], "dryrun_arg_bytes": costs.arg_bytes,
-           "allocated_growth_bytes": grown, "bytes_rel_diff": bytes_rel}
-    print("[mesh-1] " + json.dumps(rec), flush=True)
-    if max(rel.values()) > MESH_CHECK["rel_tol"] or not all(np.isfinite(list(got.values()))):
-        raise AssertionError(f"mesh check: DTensor step vs plain differ by {rel}")
-    if bytes_rel > MESH_CHECK["bytes_rel_tol"]:
-        raise AssertionError(f"mesh check: dry-run arg_bytes {costs.arg_bytes} vs allocated "
-                             f"{grown} ({bytes_rel:.4f} apart)")
-    del d_state, d_batch
     torch.cuda.empty_cache()
     return rec
 
@@ -2361,7 +2494,7 @@ def phase_dryrun(device, train_ms: float, prefill_ms: float, card: str) -> dict:
     import multiprocessing
 
     jobs = ([("small", a, None) for a in DRYRUN_SMALL]
-            + [("cell", a, s) for a, s in DRYRUN_CELLS]
+            + [("cell", a, rest) for a, *rest in DRYRUN_CELLS]
             + [("step", TRAIN["arch"], (TRAIN["seq_len"], TRAIN["batch"], "train")),
                ("step", "smollm-135m", (SERVE["prompt"], SERVE["batch"], "prefill"))])
     t0 = time.perf_counter()
@@ -2380,11 +2513,60 @@ def phase_dryrun(device, train_ms: float, prefill_ms: float, card: str) -> dict:
             raise AssertionError(f"dry-run {row['job']}: sharded, but no collective: {row}")
         row["terms_against"] = "V5E, the JAX package's modelled TPU v5e fleet: not a measurement"
         print("[dryrun] " + json.dumps(row), flush=True)
+    cells = {(r["arch"], r["shape"], r["mesh"], r["moe_impl"]): r
+             for r in rows if r["job"][0] == "cell"}
+    moe = _moe_layouts(cells)
+    f3 = _against_torch_213(cells[("smollm-135m", "train_4k", "single", "vmap")])
     steps = [r for r in rows if r["job"][0] == "step"]
     shares = [_share("train step (phase 14)", steps[0], train_ms, card),
               _share("smollm-135m prefill (phase 10)", steps[1], prefill_ms, card)]
     print(f"[dryrun] phase 15 wall {wall:.1f} s", flush=True)
-    return {"rows": rows, "mesh": mesh, "shares": shares, "wall_s": wall}
+    return {"rows": rows, "mesh": mesh, "shares": shares, "wall_s": wall, "moe": moe, "f3": f3}
+
+
+def _moe_layouts(cells: dict) -> dict:
+    """moonshot-v1-16b-a3b x train_4k under both MoE layouts, side by side:
+    FLOPs a device, the useful share (6ND/256 over them), collective bytes
+    by op, argument and peak live bytes; "batched" within its bound."""
+    rec = {}
+    for impl in ("vmap", "batched"):
+        r = cells[("moonshot-v1-16b-a3b", "train_4k", "single", impl)]
+        rec[impl] = {"flops_per_device": r["flops_per_device"],
+                     "useful_share": r["useful_flops_frac"], "coll_per_op": r["coll_per_op"],
+                     "arg_bytes": r["arg_bytes"], "peak_live_bytes": r["temp_bytes"]}
+    gain = rec["vmap"]["flops_per_device"] / rec["batched"]["flops_per_device"]
+    rec["vmap_over_batched_flops"] = gain
+    print("[dryrun-moe] " + json.dumps(rec), flush=True)
+    if not (rec["batched"]["flops_per_device"] <= MOE_BATCHED_MAX_FLOPS
+            and gain >= MOE_BATCHED_MIN_GAIN):
+        raise AssertionError(f"moe_impl='batched': {rec['batched']['flops_per_device']:.4g} "
+                             f"FLOPs a device, {gain:.2f}x fewer than 'vmap'; want at most "
+                             f"{MOE_BATCHED_MAX_FLOPS:.1e} and {MOE_BATCHED_MIN_GAIN}x")
+    return rec
+
+
+def _against_torch_213(row: dict) -> dict:
+    """This host's counts of smollm-135m x train_4k beside torch 2.13's
+    (F3_TORCH_213), each with its relative difference, at most F3_REL_TOL
+    (a count that is 0 there must be 0 here)."""
+    import torch
+
+    here = {"flops": row["flops_per_device"], "bytes": row["hbm_bytes_per_device"],
+            "peak_bytes": row["temp_bytes"],
+            **{f"coll_{op}": b for op, b in row["coll_per_op"].items()}}
+    rec = {"torch": torch.__version__, "against": "2.13 (F3_TORCH_213)",
+           **{k: {"here": v, "torch_213": F3_TORCH_213[k],
+                  "rel": (v - F3_TORCH_213[k]) / F3_TORCH_213[k] if F3_TORCH_213[k] else
+                  float(v != 0)}
+              for k, v in here.items()}}
+    print("[dryrun-f3] " + json.dumps(rec), flush=True)
+    off = {k: v["rel"] for k, v in rec.items()
+           if isinstance(v, dict) and not abs(v["rel"]) <= F3_REL_TOL}
+    if off or set(here) != set(F3_TORCH_213):
+        raise AssertionError(f"smollm-135m x train_4k on torch {torch.__version__}: counts "
+                             f"{off} off torch 2.13's by more than {F3_REL_TOL}, or keys "
+                             f"{sorted(set(here) ^ set(F3_TORCH_213))} unmatched")
+    return rec
 
 
 
@@ -2489,6 +2671,9 @@ def main() -> int:
         "card": card, "wall_s": dry["wall_s"],
         "mesh_1_rel_diff": dry["mesh"]["rel_diff"],
         "mesh_1_bytes_rel_diff": dry["mesh"]["bytes_rel_diff"],
+        "mesh_1_moe_batched_rel_diff": dry["mesh"]["moe"]["rel_diff"],
+        "moe_flops_vmap_batched": [dry["moe"][k]["flops_per_device"] for k in ("vmap", "batched")],
+        "f3_rel": {k: v["rel"] for k, v in dry["f3"].items() if isinstance(v, dict)},
         "shares": {r["step"]: {k: r[k] for k in ("ms", "achieved_tflops", "mfu",
                                                  "traced_share_of_peak")}
                    for r in dry["shares"]}}), flush=True)

@@ -84,14 +84,16 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     kv_chunk: int = 1024,
+    unroll_causal: bool = False,
     p_dtype: str = "float32",
 ) -> torch.Tensor:
     """GQA attention of q (B, S, H, hd) against k, v (B, T, K, hd).
 
     The flash kernel covers the full-sequence cases (train, prefill).
     Decode (S == 1), a runtime ``kv_len`` or a tensor ``q_offset`` go to
-    ``layers.chunked_attention`` (``kv_chunk`` keys at a time, p @ v in
-    ``p_dtype``), where the JAX package runs no kernel either.
+    ``layers.chunked_attention`` (``kv_chunk`` keys at a time, the wholly
+    masked ones skipped under ``unroll_causal``, p @ v in ``p_dtype``),
+    where the JAX package runs no kernel either.
     """
     from ..models.layers import chunked_attention
 
@@ -99,7 +101,7 @@ def flash_attention(
     if S == 1 or kv_len is not None or not isinstance(q_offset, int):
         return chunked_attention(
             q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal, window=window,
-            kv_chunk=min(kv_chunk, k.shape[1]), p_dtype=p_dtype,
+            kv_chunk=min(kv_chunk, k.shape[1]), unroll_causal=unroll_causal, p_dtype=p_dtype,
         )
     fn = _pick(q, flash_attention_plain, flash_attention_cuda, "flash_attention")
     q, k, v = (t.contiguous() for t in (q, k, v))  # the kernel reads dense rows

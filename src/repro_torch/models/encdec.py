@@ -21,11 +21,17 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
 from ..sharding.ctx import einsum, embed_lookup, shard, write_slice
 from .layers import apply_rope, rms_norm, swiglu
 from .params import ParamSpec
-from .transformer import ExecConfig, _attn_dispatch, _layer, attn_specs, mlp_specs
+from .transformer import (
+    ExecConfig,
+    _attn_dispatch,
+    _cached_attention,
+    _layer,
+    attn_specs,
+    mlp_specs,
+)
 
 __all__ = [
     "encdec_specs",
@@ -122,14 +128,9 @@ def _dec_block(cfg, ex, p, h, enc_out, pos, *, self_cache, cache_idx):
         new_self = (k, v)
     else:
         ck, cv = self_cache
-        S, T = q.shape[1], ck.shape[1]
         write_slice(ck, k.to(ck.dtype), cache_idx)
         write_slice(cv, v.to(cv.dtype), cache_idx)
-        out = ops.flash_attention(
-            q, ck.to(q.dtype), cv.to(q.dtype), q_offset=cache_idx, kv_len=cache_idx + S,
-            causal=True, window=0, kv_chunk=T if S == 1 else min(ex.kv_chunk, T),
-            p_dtype=ex.attn_p_dtype,
-        )
+        out = _cached_attention(ex, q, ck, cv, cache_idx)
         new_self = (ck, cv)
     h = h + _out(out, p["attn"]["wo"])
 

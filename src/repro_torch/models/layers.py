@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..sharding.ctx import einsum, reshape, rowwise, shard
+from ..sharding.ctx import einsum, expertwise, mean, reshape, rowwise, shard
 
 __all__ = [
     "rms_norm",
@@ -37,7 +37,7 @@ _NEG_INF = -1e30
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
-    rms = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    rms = torch.sqrt(mean(xf * xf, -1, keepdim=True) + eps)
     return ((xf / rms) * (1.0 + scale.float())).to(x.dtype)
 
 
@@ -106,6 +106,7 @@ def chunked_attention(
     causal: bool = True,
     window: int = 0,
     kv_chunk: int = 1024,
+    unroll_causal: bool = False,
     p_dtype: str = "float32",
 ) -> torch.Tensor:
     """GQA attention with bounded memory: O(S * kv_chunk) score tiles.
@@ -116,6 +117,11 @@ def chunked_attention(
     None means all T positions are valid.  ``window`` > 0 enables
     sliding-window (local) masking:  qpos - kpos < window.  The p @ v
     product takes p and v rounded to ``p_dtype`` and sums in float32.
+
+    ``unroll_causal`` with an int ``q_offset`` skips the chunks that lie
+    wholly beyond every query's causal horizon or wholly outside every
+    query's window (the JAX package's unrolled loop): such a chunk's
+    scores are all masked, so the result is the same without its work.
     """
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -137,8 +143,12 @@ def chunked_attention(
     m = torch.full((B, K, g, S), _NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, K, g, S), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, K, g, S, hd), dtype=torch.float32, device=dev)
+    skip = unroll_causal and isinstance(q_offset, int)
     for c in range(nc):
         c0 = c * kv_chunk
+        if skip and ((causal and c0 > q_offset + S - 1)
+                     or (window > 0 and q_offset - (c0 + kv_chunk - 1) >= window)):
+            continue
         kci, vci = k[:, c0 : c0 + kv_chunk], v[:, c0 : c0 + kv_chunk]
         s = einsum("bskgd,bckd->bkgsc", qf, kci.float())
         kpos = c0 + torch.arange(kv_chunk, device=dev)
@@ -199,6 +209,7 @@ def moe_layer(
     *,
     top_k: int,
     capacity_factor: float,
+    impl: str = "vmap",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE over groups = batch rows.  x: (B, S, D).
 
@@ -208,14 +219,34 @@ def moe_layer(
     logits and softmax, the top k renormalised, the (token, slot) pairs
     flattened token-major and stably sorted by expert, each expert's first
     ``capacity = ceil(S*k/E*cf)`` pairs kept and the rest dropped (written
-    to a sacrificial slot, their output zero).  The routing and the way
-    back are row-local (``rowwise``: on DTensors, each device's own rows).
+    to a sacrificial slot, their output zero).  The routing is row-local
+    (``rowwise``: on DTensors, each device's own rows).
+
+    ``impl`` lays out the experts' slots (``ExecConfig.moe_impl``):
+    ``"vmap"`` stacks every row's into (E, B·capacity, D) slabs split on
+    the experts alone, and brings the outputs back to the rows;
+    ``"batched"`` keeps the (B, E, capacity, D) buffer split on the rows
+    and the experts (``expertwise``: each device fills its own experts'
+    slots from its own rows), and each row's outputs are a sum over the
+    experts' shards.
     """
     B, S, D = x.shape
     E = router.shape[1]
     dt = x.dtype
     capacity = max(1, int(math.ceil(S * top_k / E * capacity_factor)))
     x = shard(x, "batch", "seq", None)
+
+    if impl == "batched":
+        probs, *route = rowwise(_route, (x,), (router,), top_k=top_k, capacity=capacity)
+        (buf,) = expertwise(_slots, (x, *route), weight=w_gate, partial=False, top_k=top_k,
+                            capacity=capacity)
+        buf = shard(buf[:, :, :capacity], "batch", "expert", None, None)
+        g = einsum("becd,edf->becf", buf, w_gate.to(dt))
+        u = einsum("becd,edf->becf", buf, w_up.to(dt))
+        h = shard(F.silu(g.float()).to(dt) * u, "batch", "expert", None, None)
+        y = shard(einsum("becf,efd->becd", h, w_down.to(dt)), "batch", "expert", None, None)
+        (out,) = expertwise(_combine, route, (y,), weight=w_gate, partial=True, top_k=top_k)
+        return shard(out, "batch", "seq", None), shard(probs, "batch", "seq", None)
 
     probs, buf, *route = rowwise(_dispatch, (x,), (router,), top_k=top_k, capacity=capacity)
     # the experts' slabs, every row's stacked: (E, B * capacity, D)
@@ -228,16 +259,16 @@ def moe_layer(
     y = shard(torch.bmm(h, w_down.to(dt)), "expert", None, None)
     y = y.reshape(E, B, capacity, D).transpose(0, 1)
 
-    (out,) = rowwise(_combine, (y, *route), like=x, top_k=top_k)
+    (out,) = rowwise(_combine, (*route, y), like=x, lo=0, hi=E, n_experts=E, top_k=top_k)
     return shard(out, "batch", "seq", None), shard(probs, "batch", "seq", None)
 
 
-def _dispatch(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int):
-    """Route each row: (probs, the (B, E, capacity + 1, D) expert buffer,
-    and the sorted pairs' expert, slot, keep, weight and order)."""
+def _route(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int):
+    """Route each row: (probs, and the sorted pairs' expert, slot, keep,
+    weight and order)."""
     B, S, D = x.shape
     E = router.shape[1]
-    dt, dev = x.dtype, x.device
+    dev = x.device
     logits = einsum("bsd,de->bse", x.float(), router.float())
     probs = torch.softmax(logits, dim=-1)  # (B, S, E)
     w, idx = _top_k(probs, top_k)  # (B, S, k)
@@ -247,7 +278,6 @@ def _dispatch(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: in
     e_flat = idx.reshape(B, SK)  # token-major a row
     order = torch.argsort(e_flat, dim=1, stable=True)
     e_s = torch.gather(e_flat, 1, order)
-    t_s = order // top_k  # the token of each sorted pair
     w_s = torch.gather(w.reshape(B, SK), 1, order)
 
     counts = torch.zeros((B, E), dtype=torch.long, device=dev)
@@ -255,23 +285,52 @@ def _dispatch(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: in
     starts = torch.cumsum(counts, dim=1) - counts
     pos = torch.arange(SK, device=dev)[None] - torch.gather(starts, 1, e_s)
     keep = pos < capacity
-    pos_c = torch.where(keep, pos, capacity)  # overflow -> sacrificial slot
-
-    b_idx = torch.arange(B, device=dev)[:, None]
-    x_sorted = torch.gather(x, 1, t_s[..., None].expand(B, SK, D))
-    buf = torch.zeros((B, E, capacity + 1, D), dtype=dt, device=dev)
-    buf[b_idx, e_s, pos_c] = x_sorted * keep[..., None].to(dt)
-    return probs, buf, e_s, pos, keep, w_s, order
+    return probs, e_s, pos, keep, w_s, order
 
 
-def _combine(y, e_s, pos, keep, w_s, order, *, top_k: int):
-    """The experts' outputs (B, E, capacity, D) back to the pairs (a dropped
-    pair reads slot 0 and is zeroed), then to token-major order, and each
-    token's k outputs summed: (B, S, D)."""
+def _dispatch(x: torch.Tensor, router: torch.Tensor, *, top_k: int, capacity: int):
+    """Route each row: (probs, the (B, E, capacity + 1, D) expert buffer,
+    and the sorted pairs' expert, slot, keep, weight and order)."""
+    E = router.shape[1]
+    probs, *route = _route(x, router, top_k=top_k, capacity=capacity)
+    (buf,) = _slots(x, *route, lo=0, hi=E, n_experts=E, top_k=top_k, capacity=capacity)
+    return probs, buf, *route
+
+
+def _mine(e_s, keep, lo: int, hi: int, n_experts: int):
+    """The pairs kept in the experts lo..hi-1, and their index there."""
+    if lo == 0 and hi == n_experts:
+        return keep, e_s
+    mine = keep & (e_s >= lo) & (e_s < hi)
+    return mine, torch.where(mine, e_s - lo, 0)
+
+
+def _slots(x, e_s, pos, keep, w_s, order, *, lo: int, hi: int, n_experts: int, top_k: int,
+           capacity: int):
+    """The (B, hi - lo, capacity + 1, D) buffer of the experts lo..hi-1:
+    each row's pairs kept there in their slots, the rest written (as
+    zeros) to the sacrificial last slot."""
+    B, _, D = x.shape
+    SK = e_s.shape[1]
+    mine, e_mine = _mine(e_s, keep, lo, hi, n_experts)
+    pos_c = torch.where(mine, pos, capacity)
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    x_sorted = torch.gather(x, 1, (order // top_k)[..., None].expand(B, SK, D))
+    buf = torch.zeros((B, hi - lo, capacity + 1, D), dtype=x.dtype, device=x.device)
+    buf[b_idx, e_mine, pos_c] = x_sorted * mine[..., None].to(x.dtype)
+    return (buf,)
+
+
+def _combine(e_s, pos, keep, w_s, order, y, *, lo: int, hi: int, n_experts: int, top_k: int):
+    """The outputs (B, hi - lo, capacity, D) of the experts lo..hi-1 back
+    to the pairs (a pair dropped or of another expert reads slot 0 and is
+    zeroed), then to token-major order, and each token's k outputs summed:
+    (B, S, D)."""
     B, SK = e_s.shape
     D = y.shape[-1]
+    mine, e_mine = _mine(e_s, keep, lo, hi, n_experts)
     b_idx = torch.arange(B, device=y.device)[:, None]
-    y_pair = y[b_idx, e_s, torch.where(keep, pos, 0)] * (keep * w_s)[..., None].to(y.dtype)
+    y_pair = y[b_idx, e_mine, torch.where(mine, pos, 0)] * (mine * w_s)[..., None].to(y.dtype)
     y_tok = torch.empty_like(y_pair).scatter_(1, order[..., None].expand(B, SK, D), y_pair)
     return (y_tok.reshape(B, SK // top_k, top_k, D).sum(dim=2),)
 
@@ -285,8 +344,8 @@ def moe_aux_loss(probs: torch.Tensor, top_k: int) -> torch.Tensor:
     E = probs.shape[-1]
     flat = probs.reshape(-1, E)
     (hard,) = rowwise(_hard_top_k, (flat,), top_k=top_k)
-    frac = hard.mean(dim=0) / top_k
-    mean_prob = flat.mean(dim=0)
+    frac = mean(hard, 0) / top_k
+    mean_prob = mean(flat, 0)
     return E * torch.sum(frac * mean_prob)
 
 

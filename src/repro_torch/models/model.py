@@ -38,7 +38,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..configs.shapes import InputShape
-from ..sharding.ctx import gather_for_use, take_last
+from ..sharding.ctx import gather_for_use, logsumexp, take_last
 from . import encdec, rglru, ssm, transformer
 from .params import abstract_params, init_params, logical_axes, param_count
 from .transformer import ExecConfig
@@ -74,11 +74,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE at float32.  logits: (B, S, V); labels: (B, S)
     (already aligned)."""
     lf = logits.float()
-    # log-sum-exp about the (constant) row max, as jax.nn.logsumexp takes
-    # it: on vocab-sharded DTensor logits the max and the sum reduce across
+    # on vocab-sharded DTensor logits the max and the sum reduce across
     # devices, where torch.logsumexp would gather the rows whole
-    m = torch.amax(lf.detach(), dim=-1, keepdim=True)
-    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    lse = logsumexp(lf)
     ll = take_last(lf, labels.long())  # (B, S, 1)
     return torch.mean(lse[..., None] - ll)
 

@@ -103,11 +103,14 @@ def hybrid_specs(cfg: ModelConfig) -> dict[str, Any]:
 
 
 def _block_diag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, W) @ block-diag w: (nb, wb, wb) + b."""
+    """x: (B, S, W) @ block-diag w: (nb, wb, wb) + b.  On a mesh whose
+    'state' axis the blocks do not fill, the product is a partial sum over
+    it; it is reduced to the gates' placement before the bias is added
+    (torch 2.11's DTensor cannot add a sharded bias to a partial sum)."""
     B, S, W = x.shape
     nb, wb = w.shape[0], w.shape[1]
     y = einsum("bsnw,nwv->bsnv", reshape(x, B, S, nb, wb), w.to(x.dtype))
-    return reshape(y, B, S, W) + b.to(x.dtype)
+    return shard(reshape(y, B, S, W), "batch", "seq", "state") + b.to(x.dtype)
 
 
 def _rec_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, return_state):

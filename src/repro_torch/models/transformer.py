@@ -28,7 +28,15 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..sharding.ctx import einsum, embed_lookup, gather_for_use, mesh_axis_size, shard, write_slice
+from ..sharding.ctx import (
+    bind_ctx,
+    einsum,
+    embed_lookup,
+    gather_for_use,
+    mesh_axis_size,
+    shard,
+    write_slice,
+)
 from .layers import (
     apply_mrope,
     apply_rope,
@@ -74,14 +82,37 @@ class ExecConfig:
     16x); ``"auto"`` decides on the mesh, ``"on"`` / ``"off"`` force it.
     Outside a context ``shard`` is the identity and the knob changes
     nothing.
+
+    ``unroll_causal`` lets a step with a cache skip the part it has not
+    filled: decode at ``cache_idx`` scores the cache ``kv_chunk`` keys at a
+    time and skips each chunk wholly past ``cache_idx`` (the JAX package's
+    unrolled ``chunked_attention`` conditions), where it otherwise scores
+    the whole cache as one chunk; on either route, whose decode both run
+    ``chunked_attention``.  The logits are the same up to the order of the
+    softmax's sums, and a step at fill f of a T-slot cache scores
+    ceil((f + 1) / kv_chunk) chunks instead of T keys.  A full-sequence
+    call has no chunk to skip (its last query sees every key), so there
+    the knob changes nothing; in the JAX package it also unrolls the
+    chunk scan there, which eager torch has no counterpart for.
+    ``moe_impl`` is the MoE layer's layout of the experts' slots:
+    ``"vmap"`` stacks every row's slots into one (E, B·capacity, D) slab
+    a layer, its expert dim split over the mesh ("expert"); ``"batched"``
+    keeps a (B, E, capacity, D) buffer split over the batch's and the
+    experts' mesh axes, so each device fills and runs only its own
+    experts' slots of its own rows and the rows' outputs are summed over
+    the expert axis.  Off a mesh both compute the same function (the
+    products and the final sums in another order); on a mesh "vmap" runs
+    each device's experts for every row, "batched" for its rows alone.
     """
 
     attn_impl: str = "pallas"  # pallas | xla
     kv_chunk: int = 1024
+    unroll_causal: bool = False
     remat: str = "full"  # none | dots | full
     moe_aux_coef: float = 0.01
     cp_attention: str = "auto"  # auto | on | off
     attn_p_dtype: str = "float32"
+    moe_impl: str = "vmap"  # vmap | batched
 
     def __post_init__(self) -> None:
         if self.attn_impl not in ("pallas", "xla"):
@@ -90,6 +121,8 @@ class ExecConfig:
             raise ValueError(f"remat {self.remat!r}: want 'none', 'dots' or 'full'")
         if self.cp_attention not in ("auto", "on", "off"):
             raise ValueError(f"cp_attention {self.cp_attention!r}: want 'auto', 'on' or 'off'")
+        if self.moe_impl not in ("vmap", "batched"):
+            raise ValueError(f"moe_impl {self.moe_impl!r}: want 'vmap' or 'batched'")
 
     def remat_wrap(self, fn):
         """``fn`` under activation checkpointing when grad is on; without
@@ -102,7 +135,8 @@ class ExecConfig:
         def wrapped(*args, **kwargs):
             if not torch.is_grad_enabled():
                 return fn(*args, **kwargs)
-            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+            # the recompute places its activations as the forward did
+            return checkpoint(bind_ctx(fn), *args, use_reentrant=False, preserve_rng_state=False,
                               context_fn=context, **kwargs)
 
         return wrapped
@@ -226,15 +260,9 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
         new_cache = (k, v)  # prefill fills the cache
     else:
         ck, cv = cache
-        S = q.shape[1]
         write_slice(ck, k.to(ck.dtype), cache_idx)
         write_slice(cv, v.to(cv.dtype), cache_idx)
-        T = ck.shape[1]
-        out = ops.flash_attention(
-            q, ck.to(dt), cv.to(dt), q_offset=cache_idx, kv_len=cache_idx + S,
-            causal=True, window=0, kv_chunk=T if S == 1 else min(ex.kv_chunk, T),
-            p_dtype=ex.attn_p_dtype,
-        )
+        out = _cached_attention(ex, q, ck, cv, cache_idx)
         new_cache = (ck, cv)
     return einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), new_cache
 
@@ -248,8 +276,23 @@ def _attn_dispatch(ex: ExecConfig, q, k, v, *, causal: bool, window: int) -> tor
     if ex.attn_impl == "pallas":
         return ops.flash_attention(q, k, v, q_offset=0, causal=causal, window=window,
                                    kv_chunk=chunk, p_dtype=ex.attn_p_dtype)
+    # no chunk here lies past the last query (ex.unroll_causal: nothing to skip)
     return chunked_attention(q, k, v, q_offset=0, causal=causal, window=window, kv_chunk=chunk,
                              p_dtype=ex.attn_p_dtype)
+
+
+def _cached_attention(ex: ExecConfig, q, ck, cv, cache_idx) -> torch.Tensor:
+    """The step's queries at ``cache_idx`` against a ``(B, T, K, hd)``
+    cache filled to ``cache_idx + S``: one chunk of T keys for decode,
+    ``kv_chunk`` keys a chunk, the unfilled ones skipped, under
+    ``ex.unroll_causal`` (see ``ExecConfig``)."""
+    S, T = q.shape[1], ck.shape[1]
+    unroll = ex.unroll_causal and isinstance(cache_idx, int)
+    return ops.flash_attention(
+        q, ck.to(q.dtype), cv.to(q.dtype), q_offset=cache_idx, kv_len=cache_idx + S,
+        causal=True, window=0, kv_chunk=T if S == 1 and not unroll else min(ex.kv_chunk, T),
+        unroll_causal=unroll, p_dtype=ex.attn_p_dtype,
+    )
 
 
 def _block_apply(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, cache_idx):
@@ -264,7 +307,8 @@ def _block_apply(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, ca
     if cfg.family == "moe":
         m = p["moe"]
         y, probs = moe_layer(hn2, m["router"], m["w_gate"], m["w_up"], m["w_down"],
-                             top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity)
+                             top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity,
+                             impl=ex.moe_impl)
     else:
         m = p["mlp"]
         y = swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])

@@ -27,6 +27,15 @@ tensors counts as one device.
                     created (its temporaries and outputs), which stands in
                     for XLA's ``temp_size_in_bytes``.
 
+A move of a sharded dim to another dim on one mesh dim (DTensor's
+``shard_dim_alltoall``) counts as one all-to-all of its input's bytes,
+whatever the process group runs: on a CPU mesh (gloo, the fake world)
+DTensor falls back to an all-gather and a chunk, which are not counted and
+whose gathered tensor is not live; only the local output is.
+
+``count_costs()`` runs a ``CostMode``; ``counting(mode)`` runs a subclass
+of it (one that breaks the counts down, say) with the same patches.
+
 There are no loops to scale: eager torch runs a layer loop as a loop, so
 every layer's ops pass through the mode.
 """
@@ -44,7 +53,7 @@ from torch.utils.flop_counter import flop_registry
 
 from .hlo_costs import HloCosts
 
-__all__ = ["TraceCosts", "count_costs"]
+__all__ = ["CostMode", "TraceCosts", "count_costs", "counting"]
 
 # aten counterparts of the HLO walker's _EW_OPS: ~1 flop per output element
 _EW_NAMES = {
@@ -84,6 +93,11 @@ _FREE_NAMES = {
 }
 
 
+# ops whose output aliases their input: a functional collective's result
+# wrapped for autograd
+_ALIAS_NAMES = {"_wrap_tensor_autograd"}
+
+
 def _name(func) -> str:
     name = func._overloadpacket.__name__
     return name[:-1] if name.endswith("_") and not name.startswith("_") else name
@@ -110,7 +124,11 @@ class TraceCosts(HloCosts):
     out_bytes: float = 0.0  # the step's outputs a device, set by the caller
 
 
-class _CostMode(TorchDispatchMode):
+class CostMode(TorchDispatchMode):
+    """The counter: fills ``costs`` from every op that reaches it and,
+    through ``alltoall``, from DTensor's all-to-alls.  ``seen`` maps each
+    live storage it counts (``id``) to its bytes."""
+
     def __init__(self, costs: TraceCosts) -> None:
         super().__init__()
         self.costs = costs
@@ -118,7 +136,9 @@ class _CostMode(TorchDispatchMode):
         self.seen: dict[int, int] = {}  # id(storage) -> bytes, while it lives
         self.paused = 0
 
-    def _track(self, outs: list) -> None:
+    def _track(self, outs: list, nbytes: int | None = None) -> None:
+        """Count the storages of ``outs`` live until they die (each at
+        ``nbytes`` if given, else at its storage's size)."""
         for t in outs:
             try:
                 st = t.untyped_storage()
@@ -127,7 +147,7 @@ class _CostMode(TorchDispatchMode):
             key = id(st)
             if key in self.seen:
                 continue
-            n = st.nbytes()
+            n = st.nbytes() if nbytes is None else nbytes
             self.seen[key] = n
             self.live += n
             weakref.finalize(st, self._free, key)
@@ -135,6 +155,28 @@ class _CostMode(TorchDispatchMode):
 
     def _free(self, key: int) -> None:
         self.live -= self.seen.pop(key, 0)
+
+    def _collective(self, op: str, ins: list, outs: list) -> None:
+        c = self.costs
+        b = sum(_nbytes(t) for t in ins)
+        c.coll_bytes[op] += b
+        c.coll_counts[op] += 1
+        c.bytes += b + sum(_nbytes(t) for t in outs)
+
+    def alltoall(self, fn, input, *args):
+        """One all-to-all of ``input``'s bytes for ``fn`` (DTensor's
+        ``shard_dim_alltoall``), whatever ``fn`` runs; only its output
+        lives on."""
+        if self.paused:
+            return fn(input, *args)
+        self.paused += 1
+        try:
+            out = fn(input, *args)
+        finally:
+            self.paused -= 1
+        self._collective("all-to-all", [input], [out])
+        self._track([out], _nbytes(out))
+        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -150,21 +192,17 @@ class _CostMode(TorchDispatchMode):
         c = self.costs
         packet = func._overloadpacket
         if name in _COLL:
-            op = _COLL[name]
-            b = sum(_nbytes(t) for t in ins)
-            c.coll_bytes[op] += b
-            c.coll_counts[op] += 1
-            c.bytes += b + sum(_nbytes(t) for t in outs)
+            self._collective(_COLL[name], ins, outs)
+        elif name in _FREE_NAMES or name in _ALIAS_NAMES or _is_view(func):
+            pass
         elif packet in flop_registry:
             c.dot_flops += float(flop_registry[packet](*args, **kwargs, out_val=out))
             c.bytes += sum(_nbytes(t) for t in ins + outs)
-        elif name in _FREE_NAMES or _is_view(func):
-            pass
         else:
             if name in _EW_NAMES:
                 c.ew_flops += sum(t.numel() for t in outs)
             c.bytes += sum(_nbytes(t) for t in ins + outs)
-        if not _is_view(func):
+        if not (_is_view(func) or name in _ALIAS_NAMES):
             self._track(outs)
         return out
 
@@ -173,11 +211,24 @@ class _CostMode(TorchDispatchMode):
 def count_costs():
     """Record the per-device costs of the ops run inside; yields the
     ``TraceCosts`` it fills."""
+    costs = TraceCosts()
+    with counting(CostMode(costs)):
+        yield costs
+
+
+@contextlib.contextmanager
+def counting(mode: CostMode):
+    """Run the ops inside under ``mode``, with DTensor's shape propagation
+    paused out of the count and its all-to-alls handed to
+    ``mode.alltoall``."""
+    from torch.distributed.tensor import _collective_utils, placement_types
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
 
-    costs = TraceCosts()
-    mode = _CostMode(costs)
     propagate = ShardingPropagator._propagate_tensor_meta_non_cached
+    alltoall = _collective_utils.shard_dim_alltoall
+    # placement_types imports the function by name: patch it there too
+    users = [m for m in (_collective_utils, placement_types)
+             if getattr(m, "shard_dim_alltoall", None) is alltoall]
 
     def paused(self, *args, **kwargs):
         mode.paused += 1
@@ -186,9 +237,16 @@ def count_costs():
         finally:
             mode.paused -= 1
 
+    def counted_alltoall(input, *args):
+        return mode.alltoall(alltoall, input, *args)
+
     ShardingPropagator._propagate_tensor_meta_non_cached = paused
+    for m in users:
+        m.shard_dim_alltoall = counted_alltoall
     try:
         with mode:
-            yield costs
+            yield mode
     finally:
         ShardingPropagator._propagate_tensor_meta_non_cached = propagate
+        for m in users:
+            m.shard_dim_alltoall = alltoall

@@ -50,6 +50,25 @@ def current_ctx():
     return _CTX.get()
 
 
+def bind_ctx(fn):
+    """``fn``, run under the activation_sharding context current now, or
+    ``fn`` itself outside one: a checkpoint's recompute runs in the
+    backward, which on CUDA runs on the autograd engine's own thread,
+    where the context is not set."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return fn
+
+    def run(*args, **kwargs):
+        token = _CTX.set(ctx)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _CTX.reset(token)
+
+    return run
+
+
 def mesh_axis_size(name: str) -> int | None:
     """Size of a mesh axis in the active context (None if inactive/absent)."""
     ctx = _CTX.get()
@@ -190,7 +209,7 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     local_ids = ids.redistribute(mesh, id_pl).to_local()
     rows, offset = compute_local_shape_and_global_offset(table.shape, mesh, table.placements)
     inside = (local_ids >= offset[0]) & (local_ids < offset[0] + rows[0])
-    rows_here = table.to_local(grad_placements=table_grad)
+    rows_here = _to_local(table, table_grad)
     local = rows_here[torch.where(inside, local_ids - offset[0], 0)]
     local = local * inside[..., None].to(local.dtype)
     return _FromLocal.apply(local, mesh, out_pl,
@@ -215,7 +234,7 @@ def channelwise(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not isinstance(w, DTensor):
         w = DTensor.from_local(w, mesh, [Replicate()] * mesh.ndim, run_check=False)
     out = fn(x.redistribute(mesh, x_pl).to_local(),
-             w.redistribute(mesh, w_pl).to_local(grad_placements=w_grad))
+             _to_local(w.redistribute(mesh, w_pl), w_grad))
     return _FromLocal.apply(out, mesh, x_pl, x_pl)
 
 
@@ -257,11 +276,61 @@ def rowwise(fn, rows: tuple, shared: tuple = (), *, like=None, **kwargs) -> tupl
     def local(t, pl, grad):
         if not isinstance(t, DTensor):
             return t
-        return t.redistribute(mesh, pl).to_local(grad_placements=grad)
+        return _to_local(t.redistribute(mesh, pl), grad)
 
     outs = fn(*(local(t, row_pl, row_pl) for t in rows),
               *(local(t, rep, rep_grad) for t in shared), **kwargs)
-    return tuple(DTensor.from_local(o, mesh, row_pl, run_check=False) for o in outs)
+    return tuple(_FromLocal.apply(o, mesh, row_pl, row_pl) for o in outs)
+
+
+def expertwise(fn, rows: tuple, experts: tuple = (), *, weight: torch.Tensor, partial: bool,
+               **kwargs) -> tuple:
+    """``fn(*rows, *experts, lo=, hi=, n_experts=, **kwargs)`` for an ``fn``
+    that treats each row (dim 0) on its own and touches only the experts
+    ``lo`` to ``hi - 1`` of ``n_experts``: the MoE layer's batched layout,
+    where each device fills and runs the slots of its own experts for its
+    own rows.  ``weight`` is an expert weight (E, ...), whose Shard(0) mesh
+    dims split the experts; ``experts`` hold (B, E, ...) tensors; ``fn``
+    returns a tuple of tensors, each (B, hi - lo, ...) or, with
+    ``partial``, each (B, ...) summed over its experts.  On plain tensors
+    ``lo, hi = 0, n_experts``.  On DTensors each device runs its own rows
+    (``rows[0]``'s Shard(0) mesh dims) and its own experts: ``rows`` are
+    redistributed to whole rows on their row shards, ``experts`` to
+    Shard(0) on the row dims and Shard(1) on the expert dims, and the
+    outputs come back sharded so, or as partial sums over the expert dims.
+    A row tensor's gradient is a partial sum over the expert dims (each
+    device's experts add theirs).  No context is read: a recompute in the
+    backward (on the card, on the autograd engine's own thread) places the
+    same."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    n_experts = weight.shape[0]
+    lead = rows[0]
+    if not isinstance(lead, DTensor):
+        return fn(*rows, *experts, lo=0, hi=n_experts, n_experts=n_experts, **kwargs)
+    mesh = lead.device_mesh
+    row_dims = {j for j, p in enumerate(lead.placements) if p.is_shard(0)}
+    exp_dims = ({j for j, p in enumerate(weight.placements) if p.is_shard(0)} - row_dims
+                if isinstance(weight, DTensor) else set())
+    row_pl = [Shard(0) if j in row_dims else Replicate() for j in range(mesh.ndim)]
+    exp_pl = [Shard(0) if j in row_dims else Shard(1) if j in exp_dims else Replicate()
+              for j in range(mesh.ndim)]
+    out_pl = [Partial() if partial and j in exp_dims else p for j, p in enumerate(exp_pl)]
+    (n,), (lo,) = compute_local_shape_and_global_offset(
+        (n_experts,), mesh, [Shard(0) if j in exp_dims else Replicate() for j in range(mesh.ndim)])
+
+    def local(t, pl):
+        if not isinstance(t, DTensor):
+            return t
+        grad = [Partial() if p.is_replicate() and not o.is_replicate() else p
+                for p, o in zip(pl, out_pl, strict=True)]
+        return _to_local(t.redistribute(mesh, pl), grad)
+
+    outs = fn(*(local(t, row_pl) for t in rows), *(local(t, exp_pl) for t in experts),
+              lo=lo, hi=lo + n, n_experts=n_experts, **kwargs)
+    grad_pl = [Replicate() if p.is_partial() else p for p in out_pl]
+    return tuple(_FromLocal.apply(o, mesh, out_pl, grad_pl) for o in outs)
 
 
 def write_slice(dst: torch.Tensor, src: torch.Tensor, start: int, dim: int = 1) -> None:
@@ -367,12 +436,105 @@ def _sharded_einsum(eq: str, operands: tuple) -> torch.Tensor:
     local = []
     for t, w in zip(ops, want, strict=True):
         if list(t.placements) != w:
-            t = t.redistribute(mesh, w)
+            t = _Redistribute.apply(t, tuple(w))
         grad = [Partial() if p.is_replicate() and not o.is_replicate() else p
                 for p, o in zip(w, out_pl, strict=True)]
-        local.append(t.to_local(grad_placements=grad))
+        local.append(_to_local(t, grad))
     return _FromLocal.apply(torch.einsum(eq, *local), mesh, out_pl,
                             [Replicate() if p.is_partial() else p for p in out_pl])
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``log(sum(exp(x), -1))`` about the (constant) row max, as
+    jax.nn.logsumexp takes it.  On a DTensor whose last dim is sharded
+    (vocab-parallel logits), each device sums its own shard about the
+    rows' global max and the shards' sums add up: two all-reduces of one
+    value a row.  (DTensor's own plan of these ops moves whole logits in
+    the backward, and another way on each torch version.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(x, DTensor):
+        m = torch.amax(x.detach(), dim=-1, keepdim=True)
+        return torch.log(torch.sum(torch.exp(x - m), dim=-1)) + m[..., 0]
+    mesh, d = x.device_mesh, x.ndim - 1
+    x_pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    row_pl = [Replicate() if p.is_shard(d) else p for p in x_pl]  # whole rows, dim d gone
+    local = _to_local(x.redistribute(mesh, x_pl), x_pl)
+    m = DTensor.from_local(torch.amax(local.detach(), dim=-1, keepdim=True), mesh,
+                           [Partial("max") if p.is_shard(d) else p for p in x_pl],
+                           run_check=False).redistribute(mesh, row_pl).to_local()
+    s = _FromLocal.apply(torch.sum(torch.exp(local - m), dim=-1), mesh,
+                         [Partial() if p.is_shard(d) else p for p in x_pl], row_pl)
+    lse = torch.log(s.redistribute(mesh, row_pl).to_local()) + m[..., 0]
+    return _FromLocal.apply(lse, mesh, row_pl, row_pl)
+
+
+def mean(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim, keepdim)``.  On a DTensor sharded along ``dim``, each
+    device sums its own shard and the sums add up (an all-reduce of the
+    result); DTensor's own mean hands its gradient back as a partial
+    average, which each torch version then moves another way."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    d = dim % x.ndim
+    if not (isinstance(x, DTensor) and any(p.is_shard(d) for p in x.placements)):
+        return x.mean(dim=dim, keepdim=keepdim)
+    mesh = x.device_mesh
+    x_pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    out_pl = [Replicate() if p.is_shard(d) else
+              Shard(p.dim - 1) if p.is_shard() and p.dim > d and not keepdim else p
+              for p in x_pl]
+    local = _to_local(x.redistribute(mesh, x_pl), x_pl)
+    total = _FromLocal.apply(local.sum(dim=d, keepdim=keepdim), mesh,
+                             [Partial() if p.is_shard(d) else o
+                              for p, o in zip(x_pl, out_pl, strict=True)],
+                             out_pl)
+    return total.redistribute(mesh, out_pl) / x.shape[d]
+
+
+def _to_local(t: torch.Tensor, grad_placements: list) -> torch.Tensor:
+    """``t.to_local(grad_placements=)``: the gradient comes back as a
+    DTensor of exactly those placements (torch 2.11's own reduces a
+    partial-sum gradient there)."""
+    return _ToLocal.apply(t, tuple(grad_placements))
+
+
+class _ToLocal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grad_placements):
+        ctx.mesh, ctx.placements, ctx.shape = x.device_mesh, x.placements, x.shape
+        ctx.grad_placements = grad_placements
+        local = x.to_local()
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor._utils import compute_global_tensor_info
+
+        _, stride = compute_global_tensor_info(grad, ctx.mesh, ctx.placements)
+        return DTensor.from_local(grad, ctx.mesh, ctx.grad_placements, run_check=False,
+                                  shape=ctx.shape, stride=tuple(stride)), None
+
+
+class _Redistribute(torch.autograd.Function):
+    """``x.redistribute`` whose gradient stays a partial sum on the mesh
+    dims where ``x`` was replicated (DTensor's own backward reduces it
+    there, in another way on each torch version), as a replicated
+    operand's gradient in XLA stays partial until it is used."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = x.placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        want = [g if p.is_replicate() and g.is_partial() else p
+                for p, g in zip(ctx.placements, grad.placements, strict=True)]
+        if list(grad.placements) != want:
+            grad = grad.redistribute(grad.device_mesh, want)
+        return grad, None
 
 
 class _FromLocal(torch.autograd.Function):

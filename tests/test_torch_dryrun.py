@@ -13,6 +13,8 @@ every sharded dim divides, reads exactly a quarter of the dot FLOPs of the
 (1, 1) mesh.  The reduced (4, 2) train cell of tests/test_dryrun_small.py
 traces in a subprocess for its three archs, with FLOPs, collective bytes
 and argument bytes all > 0, and the CLI writes, skips and resumes rows.
+The full smollm-135m x train_4k cell traces to chip_smoke.py's
+``F3_TORCH_213`` counts, each within its 1%.
 On a card (``needs_cuda``), a world-1 NCCL group and a (1, 1) mesh run
 one float32 train step of reduced smollm-135m with the state as DTensors,
 equal to the plain step within 1e-6 relative, and the state's allocation
@@ -175,6 +177,23 @@ def test_reduced_cell_traces_on_small_mesh(arch):
     assert res["flops"] > 0
     assert res["coll"] > 0  # sharded training must communicate
     assert res["mem"] > 0
+
+
+def test_smollm_train_cell_traces_to_the_torch_213_counts():
+    """chip_smoke.py holds the card host's torch to ``F3_TORCH_213`` (the
+    single-pod smollm-135m x train_4k counts, full width and depth); this
+    torch traces the cell to them too, so a change that moves them shows
+    here as well as on the card."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ex = ExecConfig(remat=get_arch("smollm-135m").remat, attn_impl="xla")
+    row = dryrun.dryrun_cell("smollm-135m", "train_4k", "single", ex=ex, verbose=False)
+    rec = smoke._against_torch_213(row)  # raises past the tolerance
+    assert rec["flops"]["here"] > 0 and rec["coll_all-to-all"]["here"] > 0
 
 
 def test_cli_writes_skips_and_resumes(tmp_path):

@@ -235,8 +235,9 @@ def test_default_capacity_drops_tokens_and_the_nodrop_factor_keeps_them(monkeypa
     above hold), and a factor of 2 drops none."""
     seen = []
 
-    def spy(x, router, *w, top_k, capacity_factor):
-        out, probs = real(x, router, *w, top_k=top_k, capacity_factor=capacity_factor)
+    def spy(x, router, *w, top_k, capacity_factor, impl):
+        out, probs = real(x, router, *w, top_k=top_k, capacity_factor=capacity_factor,
+                          impl=impl)
         E = router.shape[1]
         cap = max(1, int(np.ceil(x.shape[1] * top_k / E * capacity_factor)))
         idx = layers._top_k(probs, top_k)[1].reshape(x.shape[0], -1)
@@ -298,7 +299,7 @@ def test_moe_layer_matches_reference(cf, impl):
         capacity_factor=cf, impl=impl)
     got_out, got_probs = layers.moe_layer(torch.from_numpy(x), torch.from_numpy(router),
                                           *map(torch.from_numpy, ws), top_k=k,
-                                          capacity_factor=cf)
+                                          capacity_factor=cf, impl=impl)
     np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out), **TOL)
     np.testing.assert_allclose(got_probs.numpy(), np.asarray(want_probs), **TOL)
     np.testing.assert_allclose(float(layers.moe_aux_loss(got_probs, k)),

@@ -14,6 +14,7 @@ within 5%.
 """
 
 import dataclasses
+from pathlib import Path
 
 import pytest
 
@@ -25,7 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.roofline import analysis as ref_analysis  # noqa: E402
 from repro.roofline import hlo_costs as ref_hlo  # noqa: E402
 from repro_torch.roofline import analysis, hlo_costs  # noqa: E402
-from repro_torch.roofline.trace_costs import TraceCosts, count_costs  # noqa: E402
+from repro_torch.roofline.trace_costs import TraceCosts, count_costs, counting  # noqa: E402
 
 _SYNTH_AR_AG = """
 HloModule m
@@ -197,6 +198,37 @@ def test_count_costs_elementwise_bytes_and_peak():
     # one step's product and exp live at once; each loop frees both
     assert rec.peak_bytes == 2 * 4 * n
     assert isinstance(rec, TraceCosts) and rec.total_coll_bytes == 0
+
+
+def test_count_costs_by_op_adds_up_to_the_totals():
+    """experiments/dryrun_by_op.py's breakdown of the counter: each op's
+    count, FLOPs and bytes, summing to the totals, and the bytes each op
+    created that are live at the peak, summing to the peak."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "experiments" / "dryrun_by_op.py"
+    spec = importlib.util.spec_from_file_location("dryrun_by_op", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    x = torch.ones(256, 128)
+    w = torch.ones(128, 64)
+    rec = TraceCosts()
+    mode = script.ByOpMode(rec)
+    with counting(mode):
+        y = torch.exp(x @ w)
+        z = y * 2.0
+        del y
+    by_op = mode.breakdown()
+    assert set(by_op) == {"mm", "exp", "mul"}
+    assert all(v["count"] == 1 for v in by_op.values())
+    assert by_op["mm"]["flops"] == rec.dot_flops == 2 * 256 * 128 * 64
+    assert sum(v["flops"] for v in by_op.values()) == rec.flops
+    assert sum(v["bytes"] for v in by_op.values()) == rec.bytes
+    # the peak is first reached with the product and its exp live (the
+    # product dies before the scaled copy is made)
+    assert sum(v["peak_bytes"] for v in by_op.values()) == rec.peak_bytes
+    assert by_op["mm"]["peak_bytes"] == by_op["exp"]["peak_bytes"] == z.numel() * 4
+    assert by_op["mul"]["peak_bytes"] == 0
 
 
 def test_count_costs_counts_per_device_on_a_fake_mesh():

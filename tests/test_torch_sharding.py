@@ -10,11 +10,11 @@ shapes and dtypes, and ``param_bytes``.  The placements DTensor derives
 from a spec give local shapes of ``dim // prod(sizes)`` on a fake
 512-rank world.  ``shard`` is the identity outside a context and on plain
 tensors, and raises on a rank mismatch.  A 4-process gloo group on a
-(2, 2) CPU mesh computes the reduced smollm-135m, moonshot-v1-16b-a3b,
-mamba2-130m and recurrentgemma-2b losses with their parameters sharded by
-``fsdp_tp_sp`` and activation sharding on, equal to the plain CPU port's
-within 1e-6 relative, and the norm of each parameter's gradient within
-1e-5.
+(2, 2) CPU mesh computes the reduced smollm-135m, moonshot-v1-16b-a3b
+(under both ``moe_impl``s), mamba2-130m and recurrentgemma-2b losses with
+their parameters sharded by ``fsdp_tp_sp`` and activation sharding on,
+equal to the plain CPU port's within 1e-6 relative, and the norm of each
+parameter's gradient within 1e-5.
 """
 
 import json
@@ -348,8 +348,10 @@ def worker(rank, world, store, arch, out):
     try:
         mesh = make_mesh((2, 2), ("data", "model"))
         rules = PRESETS["fsdp_tp_sp"]
+        arch, _, moe_impl = arch.partition("@")
         cfg = get_arch(arch).reduced()
-        model = Model(cfg, ExecConfig(attn_impl="xla", remat="none"), params={}, device="cpu")
+        ex = ExecConfig(attn_impl="xla", remat="none", moe_impl=moe_impl or "vmap")
+        model = Model(cfg, ex, params={}, device="cpu")
         params = model.init(torch.Generator().manual_seed(0))
         tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, size=(4, 32)))
         batch = {"tokens": tok, "labels": tok}
@@ -386,7 +388,7 @@ if __name__ == "__main__":
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "moonshot-v1-16b-a3b", "mamba2-130m",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "moonshot-v1-16b-a3b@batched"])
 def test_gloo_sharded_loss_equals_plain(arch, tmp_path):
     script = tmp_path / "gloo_loss.py"
     script.write_text(_GLOO)
@@ -401,5 +403,5 @@ def test_gloo_sharded_loss_equals_plain(arch, tmp_path):
     # every parameter's gradient, summed across the shards and replicas
     np.testing.assert_allclose(norms, want_norms, rtol=1e-5, atol=1e-9)
     # the weights really are sharded: the table's vocab over model, embed over data
-    cfg = get_arch(arch).reduced()
+    cfg = get_arch(arch.partition("@")[0]).reduced()
     assert tuple(res["local"]) == (cfg.vocab // 2, cfg.d_model // 2)
