@@ -73,18 +73,37 @@ Phases (each raises on failure, so any failure exits non-zero):
     prefill's launches by the layer's kind (30 flash-attention; 24
     SSD-scan; 18 RG-LRU-scan and 8 flash-attention; 28; 72 = 24 encoder +
     2 x 24 decoder; 48; every flash-attention and SSD-scan launch on its
-    tensor-core kernel) and no other launch; the prefill's last logits
-    through the kernels beside those through their plain versions (for the
-    MoE model also the tokens whose expert set differs); prefill ms, decode
-    ms a token, tokens/s and the device split; for the MoE model also the
-    prefill and decode ms under ``moe_impl="batched"`` on the same weights;
+    tensor-core kernel) and no other launch; under ``ServeEngine(jit=False)``
+    (every op dispatched from the host) and then ``jit=True`` (the default:
+    the prefill and the decode step captured as CUDA graphs, kernels 3-5
+    inside the captured prefill) on the same weights, greedy tokens equal,
+    also for a second prompt length (512 positions: under ``jit`` a second
+    prefill graph, its peak memory read); the wrappers count a prefill's
+    kernels once in each engine's first ``generate`` (under ``jit``, the
+    eager warm-up before the captures) and none in ``jit``'s second (the
+    replays run no wrapper); each prefill graph's kernel nodes stand for
+    the same launches and each decode graph's for none; a traced
+    ``generate`` (under ``jit`` a replay) launches the same, by its
+    wrappers or its prefill graph's nodes, and shows each of them among its
+    device kernels (``kernels.counts.seen``; the profiler drops a record
+    now and then, so a count there may fall short); the prefill's last logits through the kernels
+    beside those through their plain versions (for the MoE model also the
+    tokens whose expert set differs); under each setting prefill ms (three
+    calls; under ``jit`` also each capture's first call), decode ms a
+    token, tokens/s, the card's peak memory and the device split of a
+    traced ``generate``; for the MoE model also the captured prefill and
+    decode ms under ``moe_impl="batched"`` on the same weights;
 11. the six models at full width in float32 on the card and on the CPU
     (the plain path) with the same weights, at full depth but for
     moonshot-v1-16b-a3b's 2 of 48 layers (112 GB of float32 weights fit
     nowhere): 2 prompts of 128 positions (qwen2-vl-2b: an 8 x 8 patch grid
     and 64 tokens; seamless-m4t-large-v2: 128 frames and 128 tokens) and 4
     decode steps fed the same tokens, logits compared, the card's float32
-    prefill on the CUDA-core flash and SSD kernels; for the MoE model the
+    prefill on the CUDA-core flash and SSD kernels; the card's steps both
+    eagerly and through ``ServeEngine(jit=True)`` (a replayed prefill, its
+    launches read from its graph's kernel nodes and shown among its traced
+    device kernels, and decode steps on one captured graph), each within
+    the tolerance; for the MoE model the
     tokens routed to another expert set on the card than on the CPU, and
     the same prefill and decode steps on the card under
     ``moe_impl="batched"``, greedy tokens equal to "vmap"'s and logits
@@ -171,7 +190,11 @@ TF32 switch, though nothing here calls cuDNN).
 The launch counts are zeroed just before each main-path run and read just
 after it (for phase 6, around the many-walk alone: it must launch the
 fleet-parallel kernel and never the single-instance one; for phase 10,
-around one ``generate``; for phase 13, around each run on the card; for
+around each of three ``generate``s of each engine, where a captured
+step's replay runs no wrapper and counts nothing: what a replay launched
+is read from a traced ``generate``'s device kernels
+(``repro_torch.kernels.counts.seen``), and the last line's counts for
+kernels 3-5 are the wrappers' own; for phase 13, around each run on the card; for
 phase 14, around (a)'s card step, (b)'s 30 steps (which must launch no
 kernel) and (d)'s no-grad loss on the "pallas" route; for phase 15, around
 (b)'s DTensor step, which must launch none; for
@@ -290,6 +313,8 @@ NEW_ATTN = {
     "cross S 128, T 1024": (8, 128, 1024, 16, 16, 64, False, 0),
 }
 SERVE = dict(batch=8, prompt=1024, new=32)
+# the card's idle time inside each edge of a profiler's window (``_trace``)
+TRACE_MARGIN_S = 0.05
 # moonshot-v1-16b-a3b last: its 56.1 GB of bf16 weights need the card to itself
 SERVE_MODELS = ("smollm-135m", "mamba2-130m", "recurrentgemma-2b", "qwen2-vl-2b",
                 "seamless-m4t-large-v2", "moonshot-v1-16b-a3b")
@@ -873,49 +898,67 @@ def phase_deep(engine: str) -> dict:
     return rec
 
 
-def _device_split(run, kernels: tuple[str, ...] = ("placement_sweep_kernel",)) -> dict:
-    """Device time of one traced ``run()`` by kind, from torch.profiler's
-    device events (kernels, copies, sets) alone: each kernel named in
-    ``kernels``, host-to-device and device-to-host copies, the rest; and
-    the busy share, the union of those events' intervals over the traced
-    wall time.  (The host-side ops' device times, which attribute the same
-    kernels a second time, are not counted.)"""
+def _trace(run):
+    """Run ``run()`` under torch.profiler; (its result, the device events
+    (kernels, copies, sets) as (name, start us, end us), the traced wall
+    us).  (The host-side ops' device times, which would count the same
+    kernels a second time, are left out.)  The profiler drops device events
+    near the edges of its window (on the H100 one traced replay in 30 lost
+    its first 64), so the card idles ``TRACE_MARGIN_S`` inside each edge,
+    outside the timed wall."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
         t0 = time.perf_counter()
-        run()
+        out = run()
         wall_us = (time.perf_counter() - t0) * 1e6
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    events = [(e.key, float(e.time_range.start), float(e.time_range.end))
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return out, events, wall_us
+
+
+def _device_split(run, kernels: tuple[str, ...] = ("placement_sweep_kernel",)) -> dict:
+    """Device time of one traced ``run()`` by kind, from its device events
+    (``_trace``): each kernel named in ``kernels``, host-to-device and
+    device-to-host copies, the rest; the busy share, the union of those
+    events' intervals over the traced wall time; and ``launches_seen``,
+    the wrappers' launches the traced kernels stand for
+    (``kernels.counts.seen``)."""
+    from repro_torch.kernels import counts
+
+    _, events, wall_us = _trace(run)
     split = {**dict.fromkeys(kernels, 0.0), "memcpy_htod": 0.0, "memcpy_dtoh": 0.0}
     other: dict[str, float] = {}
-    spans = []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = float(e.time_range.elapsed_us())
-        spans.append((float(e.time_range.start), float(e.time_range.end)))
-        named = [k for k in kernels if k in e.key]
+    for key, a, b in events:
+        us = b - a
+        named = [k for k in kernels if k in key]
         if named:
             split[named[0]] += us
-        elif "HtoD" in e.key:
+        elif "HtoD" in key:
             split["memcpy_htod"] += us
-        elif "DtoH" in e.key:
+        elif "DtoH" in key:
             split["memcpy_dtoh"] += us
         else:
-            other[e.key] = other.get(e.key, 0.0) + us
-    if not spans:
+            other[key] = other.get(key, 0.0) + us
+    if not events:
         return {"device_us": "not measured (the profiler recorded no device time)"}
     busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):  # the union of the device events' intervals
+    for a, b in sorted((a, b) for _, a, b in events):  # the union of the events' intervals
         if b > end:
             busy += b - max(a, end)
             end = b
     split["other"] = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
-    split["device_events"] = len(spans)
+    split["device_events"] = len(events)
     split["device_busy_us"] = busy
     split["traced_wall_us"] = wall_us
     split["device_busy_share"] = busy / wall_us
+    split["launches_seen"] = counts.seen(key for key, _, _ in events)
     return split
 
 
@@ -935,25 +978,14 @@ def _counted(run):
     """Run ``run()`` with every kernel's launch count set to 0 just before
     it; return its result and the counts read just after
     (``flash_attention_mma``, ``ssd_scan_mma``: the launches on the
-    tensor-core kernels, a part of ``flash_attention``'s and ``ssd_scan``'s)."""
-    from repro_torch.kernels.placement_step import placement_sweep_batch_cuda, placement_sweep_cuda
+    tensor-core kernels, a part of ``flash_attention``'s and ``ssd_scan``'s).
+    The counts are ``repro_torch.kernels.counts``'s: the launches the
+    wrappers made, none of a captured serving step's replays."""
+    from repro_torch.kernels import counts
 
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-
-    kernels = {"placement_sweep": placement_sweep_cuda,
-               "placement_sweep_batch": placement_sweep_batch_cuda,
-               "flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
-               "rglru_scan": rglru_scan_cuda}
-    for fn in kernels.values():
-        fn.launches = 0
-    flash_attention_cuda.mma_launches = 0
-    ssd_scan_cuda.mma_launches = 0
+    counts.reset()
     out = run()
-    counts = {name: fn.launches for name, fn in kernels.items()}
-    return out, {**counts, "flash_attention_mma": flash_attention_cuda.mma_launches,
-                 "ssd_scan_mma": ssd_scan_cuda.mma_launches}
+    return out, counts.read()
 
 
 def _check_many_launches(what: str, launches: dict) -> None:
@@ -1917,93 +1949,210 @@ def _on(batch: dict, device) -> dict:
 def phase_serve(name: str, device) -> dict:
     """ServeEngine.generate at the model's full published width and depth in
     bfloat16, weights from init_params with a seeded generator on the
-    card."""
+    card: under ``jit=False`` (every op dispatched from the host), then
+    under ``jit=True`` (the default: prefill and decode as CUDA graphs) on
+    the same weights, greedy tokens equal."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.models import ExecConfig, Model
-    from repro_torch.serve import ServeConfig, ServeEngine
 
     cfg = get_arch(name)
-    want = _expected_launches(cfg)
     B, S, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
     gc.collect()  # the earlier models' weights go before this one's come
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated(device) / 1e9
     model = Model(cfg, generator=torch.Generator(device).manual_seed(0), device=device,
                   dtype=getattr(torch, cfg.dtype))
-    engine = ServeEngine(model, ServeConfig(max_len=S + new))
     batch = _on(_serve_batch(cfg, B, S, 13, SERVE_GRID), device)
-    engine.generate(batch, 2)  # first use: cuBLAS handles, the kernels' first launch
-    torch.cuda.synchronize()
-
-    def run():
-        t0 = time.perf_counter()
-        out = engine.generate(batch, new)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    (out, gen_s), counts = _counted(run)
-    if {k: n for k, n in counts.items() if n and not k.endswith("_mma")} != want:
-        raise AssertionError(f"serve {name}: launches {counts}; want {want} (one a layer of "
-                             f"its kind, in the prefill) and no other")
-    for kernel in ("flash_attention", "ssd_scan"):
-        if counts[f"{kernel}_mma"] != counts[kernel]:
-            raise AssertionError(f"serve {name}: {counts[f'{kernel}_mma']} of {counts[kernel]} "
-                                 f"{kernel} launches on the tensor-core kernel; want all of "
-                                 f"them (bfloat16)")
-    if tuple(out.shape) != (B, new) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
-        raise AssertionError(f"serve {name}: tokens {tuple(out.shape)} out of range")
-
-    prefill_ms, decode_ms = _prefill_decode_ms(model, batch, S, new)
+    short = _on(_serve_batch(cfg, B, S // 2, 14, SERVE_GRID), device)
+    eager, eager_out = _serve_engine(model, batch, short, device, jit=False)
+    captured, outs = _serve_engine(model, batch, short, device, jit=True)
+    for what, got, want in zip(("", "shorter prompt's "), outs, eager_out, strict=True):
+        if not torch.equal(got, want):
+            rows = (got != want).any(-1).nonzero()[:, 0].tolist()
+            raise AssertionError(f"serve {name}: jit=True {what}tokens differ from "
+                                 f"jit=False's in rows {rows}")
+    out = outs[0]
     rec = {
         "model": name, "layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
         "d_model": cfg.d_model, "vocab": cfg.vocab,
         "dtype": cfg.dtype, "params": model.n_params(), "batch": B, "prompt": S, "new": new,
         "batch_keys": sorted(batch), "card_gb_held_before": held_gb,
-        "card_gb_peak": torch.cuda.max_memory_allocated(device) / 1e9,
-        "generate_s": gen_s, "tokens_per_s": B * new / gen_s,
-        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
-        "launches": counts, "first_row": out[0, :8].tolist(),
+        "jit_tokens_equal_eager": True, "first_row": out[0, :8].tolist(),
+        # the default engine's (jit=True) numbers at the top level
+        **{k: captured[k] for k in ("generate_s", "tokens_per_s", "prefill_ms",
+                                    "decode_ms_per_token", "launches", "card_gb_peak")},
+        "jit_true": captured, "jit_false": eager,
         "prefill_vs_plain": _prefill_vs_plain(model, batch),
-        "device_us": _device_split(lambda: (engine.generate(batch, 8), torch.cuda.synchronize()),
-                                   kernels=tuple(k for n in want for k in KERNEL_SYMBOLS[n])),
     }
     if cfg.family == "moe":  # the other layout of the experts' slots, on the same weights
+        from repro_torch.serve import ServeConfig, ServeEngine
+
         batched = Model(cfg, ExecConfig(moe_impl="batched"), params=model.params, device=device)
-        ms = _prefill_decode_ms(batched, batch, S, new)
-        rec["moe_impl_batched"] = {"prefill_ms": ms[0], "decode_ms_per_token": ms[1]}
-        del batched
+        engine = ServeEngine(batched, ServeConfig(max_len=S + new))
+        engine.generate(batch, 2)  # the captures
+        ms = _prefill_decode_ms(engine, batch, S, new)
+        rec["moe_impl_batched"] = {"jit": True, "prefill_ms": ms[0],
+                                   "decode_ms_per_token": ms[1]}
+        del batched, engine
+        gc.collect()
     print("[serve] " + json.dumps(rec), flush=True)
-    del model, engine
+    del model
     torch.cuda.empty_cache()
     return rec
 
 
-def _prefill_decode_ms(model, batch: dict, S: int, new: int) -> tuple[list, float]:
-    """Three timed prefills, then ``new - 1`` greedy decode steps: (the
-    prefills' ms, the steps' mean ms)."""
+def _check_launches(what: str, launches: dict, want: dict) -> None:
+    """``launches`` (by ``kernels.counts``' names) are ``want``, one a layer
+    of its kind, and no other; every flash and SSD one on the tensor cores
+    (bfloat16)."""
+    if {k: n for k, n in launches.items() if n and not k.endswith("_mma")} != want:
+        raise AssertionError(f"{what}: launches {launches}; want {want} (one a layer of its "
+                             f"kind, in the prefill) and no other")
+    for kernel in ("flash_attention", "ssd_scan"):
+        if launches.get(f"{kernel}_mma", 0) != launches.get(kernel, 0):
+            raise AssertionError(f"{what}: {launches.get(f'{kernel}_mma', 0)} of "
+                                 f"{launches.get(kernel, 0)} {kernel} launches on the "
+                                 f"tensor-core kernel; want all of them (bfloat16)")
+
+
+def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tuple[dict, list]:
+    """One engine's run of phase 10: two timed ``generate``s of ``batch``
+    (the first warms up; under ``jit`` it captures prefill and decode,
+    each step run once eagerly first, and the second replays them), then
+    one of ``short``, a shorter prompt (under ``jit`` a second prefill
+    graph).  The wrappers' launch counts of each: a prefill's kernels once
+    a layer of their kind and no other, every flash and SSD launch on the
+    tensor cores; under ``jit`` the replaying second none (a replay runs no
+    wrapper).  The tokens of the second and the short ``generate``; three
+    timed prefills and the decode steps' mean ms; the card's peak memory
+    from the engine's first call, after the first prompt length and after
+    both; under ``jit``, each prefill graph's launches (its kernel nodes)
+    held to the same want and each decode graph's to none; a traced 8-token
+    ``generate`` (under ``jit``, a replay): its launches (the wrappers' or
+    its prefill graph's), held to the same want and each shown among its
+    device kernels, and its device split; under ``jit``, each capture's ms
+    (the first call of a step: warm-up and capture)."""
     import torch
 
-    from repro_torch.serve import make_decode_step, make_prefill_step
-    from repro_torch.serve.engine import _pad_cache_to
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.graphs import signature
 
-    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    cfg = model.cfg
+    want = _expected_launches(cfg)
+    S, new = SERVE["prompt"], SERVE["new"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    engine = ServeEngine(model, ServeConfig(max_len=S + new), jit=jit)
+
+    def run(b):
+        t0 = time.perf_counter()
+        out = engine.generate(b, new)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    runs = []
+    for which in ("first", "second"):
+        (out, gen_s), counts = _counted(lambda: run(batch))
+        _check_launches(f"serve {cfg.name} jit={jit}, {which} generate", counts,
+                        {} if jit and which == "second" else want)
+        runs.append((out, gen_s, counts))
+    out = runs[1][0]
+    if not torch.equal(out, runs[0][0]):
+        raise AssertionError(f"serve {cfg.name} jit={jit}: the second generate's tokens differ "
+                             f"from the first's")
+    in_range = bool(((out >= 0) & (out < cfg.vocab)).all())
+    if tuple(out.shape) != (SERVE["batch"], new) or not in_range:
+        raise AssertionError(f"serve {cfg.name}: tokens {tuple(out.shape)} out of range")
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved(device) / 1e9
+    (out_short, short_s), short_counts = _counted(lambda: run(short))
+    _check_launches(f"serve {cfg.name} jit={jit}, a shorter prompt's generate", short_counts,
+                    want)
+    prefill_ms, decode_ms = _prefill_decode_ms(engine, batch, S, new)
+    rec = {"jit": jit, "generate_first_s": runs[0][1], "generate_s": runs[1][1],
+           "tokens_per_s": len(out) * new / runs[1][1], "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms, "launches_first": runs[0][2],
+           "launches_second": runs[1][2], "card_gb_peak": peak_gb,
+           "card_gb_reserved_peak": reserved_gb,
+           "short_prompt": {"positions": int(short["tokens"].shape[1]) + (
+               int(short["patch_embeds"].shape[1]) if "patch_embeds" in short else 0),
+                            "generate_s": short_s, "launches": short_counts,
+                            "card_gb_peak_both_prompts": torch.cuda.max_memory_allocated(
+                                device) / 1e9,
+                            "card_gb_reserved_peak_both_prompts":
+                                torch.cuda.max_memory_reserved(device) / 1e9},
+           "launches_wrappers": {k: runs[0][2][k] + runs[1][2][k] + short_counts[k]
+                                 for k in runs[0][2]}}
+    if jit:
+        rec["capture_ms"] = {"prefill": [c["ms"] for c in engine._prefill.captures],
+                             "decode": [c["ms"] for c in engine._decode.captures]}
+    if jit:  # what each replay launches: the graphs' kernel nodes
+        rec["graph_launches"] = {
+            step: [engine_step.launches(key) for key in engine_step.graphs]
+            for step, engine_step in (("prefill", engine._prefill), ("decode", engine._decode))}
+        for got in rec["graph_launches"]["prefill"]:
+            _check_launches(f"serve {cfg.name}, a prefill graph's kernel nodes", got, want)
+        if any(rec["graph_launches"]["decode"]):
+            raise AssertionError(f"serve {cfg.name}: a decode graph launches "
+                                 f"{rec['graph_launches']['decode']}; want none of the kernels")
+    split, traced = _counted(lambda: _device_split(
+        lambda: (engine.generate(batch, 8), torch.cuda.synchronize()),
+        kernels=tuple(k for n in want for k in KERNEL_SYMBOLS[n])))
+    if "launches_seen" not in split:
+        raise AssertionError(f"serve {cfg.name} jit={jit}: {split['device_us']}; the traced "
+                             f"generate's launches cannot be read")
+    # the traced generate's launches: the wrappers' (eager) or its prefill
+    # graph's replay (the graph's kernel nodes), each shown in the trace
+    _check_launches(f"serve {cfg.name} jit={jit}, the traced generate's wrappers", traced,
+                    {} if jit else want)
+    rec["launches"] = (engine._prefill.launches(signature((batch,))) if jit else
+                       {k: n for k, n in traced.items() if n})
+    _check_traced(f"serve {cfg.name} jit={jit}, the traced generate", split["launches_seen"],
+                  rec["launches"])
+    rec["device_us"] = split
+    del engine
+    gc.collect()  # the graphs and their pool go with the engine
+    torch.cuda.empty_cache()
+    return rec, [out, out_short]
+
+
+def _check_traced(what: str, seen: dict, launches: dict) -> None:
+    """A trace's launches ``seen`` (``kernels.counts.seen`` of its device
+    kernels) show every kernel of ``launches`` run, on the kernel
+    ``launches`` names (tensor-core or not), and no other.  The profiler
+    drops a device record now and then (71 of a float32 prefill's 72 flash
+    launches in one traced replay on an H100, and 70 in another), so a count
+    may fall short of ``launches``', never above it: ``launches`` come
+    exactly from the wrappers or a graph's kernel nodes."""
+    short = {k: (seen.get(k, 0), n) for k, n in launches.items() if not 1 <= seen.get(k, 0) <= n}
+    if set(seen) != set(launches) or short:
+        raise AssertionError(f"{what}: its device kernels stand for launches {seen}; want "
+                             f"each of {launches} seen at least once and at most as often, "
+                             f"and no other")
+
+
+def _prefill_decode_ms(engine, batch: dict, S: int, new: int) -> tuple[list, float]:
+    """Three timed ``engine.prefill``s, then ``new - 1`` greedy
+    ``engine.decode`` steps: (the prefills' ms, the steps' mean ms)."""
+    import torch
+
     prefill_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last, state = prefill(batch)
+        last, state = engine.prefill(batch)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
     if not bool(torch.isfinite(last.float()).all()):
-        raise AssertionError(f"serve {model.cfg.name}: prefill logits are not finite")
-    state = _pad_cache_to(state, model.cfg.family, S + new)
+        raise AssertionError(f"serve {engine.model.cfg.name}: prefill logits are not finite")
     tok = torch.argmax(last, dim=-1).to(torch.int32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in range(1, new):
-        logits, state = decode(state, tok, S + t - 1)
+        logits, state = engine.decode(state, tok, S + t - 1)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
     torch.cuda.synchronize()
     return prefill_ms, (time.perf_counter() - t0) * 1e3 / (new - 1)
@@ -2043,7 +2192,7 @@ def phase_serve_check(name: str, device) -> dict:
     routes = [(g_routes, c_routes)]
     g_state = _pad_cache_to(g_state, cfg.family, S + steps)
     c_state = _pad_cache_to(c_state, cfg.family, S + steps)
-    errs, scales = [], []
+    errs, scales, errs_captured = [], [], []
     pairs = [(g_last, c_last)]
     step = torch.argmax(c_last, dim=-1).to(torch.int32)
     fed = []
@@ -2057,18 +2206,26 @@ def phase_serve_check(name: str, device) -> dict:
         step = torch.argmax(c_log, dim=-1).to(torch.int32)
     moe_layouts = (_moe_layouts_agree(cfg, gpu, batch, S, fed, [g for g, _ in pairs], device)
                    if cfg.family == "moe" else None)
-    for g, c in pairs:
-        g = g.float().cpu()
-        errs.append(float((g - c).abs().max()))
-        scales.append(float(c.abs().max()))
-        if not bool(torch.isfinite(g).all()) or errs[-1] > CHECK["rel_tol"] * scales[-1]:
-            raise AssertionError(f"serve check {name}: card vs CPU logits differ by {errs[-1]} "
-                                 f"(max |logit| {scales[-1]}, tolerance {CHECK['rel_tol']} of it)")
+    captured = _captured_steps(gpu, batch, S, fed, want, device)
+    for what, got in (("eager", [g for g, _ in pairs]), ("captured", captured)):
+        for g, (_, c) in zip(got, pairs, strict=True):
+            g = g.float().cpu()
+            err, scale = float((g - c).abs().max()), float(c.abs().max())
+            if what == "eager":
+                errs.append(err)
+                scales.append(scale)
+            else:
+                errs_captured.append(err)
+            if not bool(torch.isfinite(g).all()) or err > CHECK["rel_tol"] * scale:
+                raise AssertionError(f"serve check {name} ({what} steps): card vs CPU logits "
+                                     f"differ by {err} (max |logit| {scale}, tolerance "
+                                     f"{CHECK['rel_tol']} of it)")
     rec = {"model": name, "layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
            "dtype": "float32", "batch": B, "prompt": S, "decode_steps": steps,
            "batch_keys": sorted(batch),
            "max_abs_err": max(errs), "max_abs_err_by_step": errs, "max_abs_logit": max(scales),
-           "rel_tol": CHECK["rel_tol"]}
+           "captured_max_abs_err": max(errs_captured),
+           "captured_max_abs_err_by_step": errs_captured, "rel_tol": CHECK["rel_tol"]}
     if cfg.family == "moe":  # the card's routes against the CPU's, prefill then each step
         rec["routes_card_vs_cpu"] = [_route_diff(g, c) for g, c in routes]
         rec["moe_impl_batched_vs_vmap"] = moe_layouts
@@ -2076,6 +2233,40 @@ def phase_serve_check(name: str, device) -> dict:
     del gpu, cpu, g_state, c_state
     torch.cuda.empty_cache()
     return rec
+
+
+def _captured_steps(model, batch: dict, S: int, fed: list, want: dict, device) -> list:
+    """The same prefill and decode steps through ``ServeEngine(jit=True)``:
+    a first prefill captures, a second replays, traced: no wrapper runs in
+    it, and its device kernels stand for ``want``'s launches (float32: on
+    the CUDA-core kernels); the decode steps fed ``fed`` (the first
+    captures, the rest replay).  Returns the logits, prefill first."""
+    import torch
+
+    from repro_torch.kernels import counts
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    engine = ServeEngine(model, ServeConfig(max_len=S + len(fed)))
+    on = _on(batch, device)
+    engine.prefill(on)
+    ((last, state), events, _), wrappers = _counted(
+        lambda: _trace(lambda: (engine.prefill(on), torch.cuda.synchronize())[0]))
+    (key,) = engine._prefill.graphs
+    launches = engine._prefill.launches(key)
+    if launches != want or any(wrappers.values()) or len(engine._prefill.captures) != 1:
+        raise AssertionError(f"serve check {model.cfg.name}: a replayed float32 prefill's "
+                             f"graph launches {launches} and its wrappers {wrappers}; want "
+                             f"{want} (the CUDA-core kernels) and none, after one capture")
+    _check_traced(f"serve check {model.cfg.name}, a replayed float32 prefill",
+                  counts.seen(name for name, _, _ in events), launches)
+    got = [last]
+    for t, step in enumerate(fed):
+        logits, state = engine.decode(state, step.to(device), S + t)
+        got.append(logits)
+    if len(engine._decode.captures) != 1:
+        raise AssertionError(f"serve check {model.cfg.name}: {len(engine._decode.captures)} "
+                             f"decode captures; want 1")
+    return got
 
 
 def _moe_layouts_agree(cfg, vmap, batch: dict, S: int, fed: list, logits: list,
@@ -2642,8 +2833,11 @@ def main() -> int:
         "fault_misses_k1_k2": [sum(resil["misses_k1"]), sum(resil["misses_k2"])]}), flush=True)
 
     serve = {name: phase_serve(name, device) for name in SERVE_MODELS}
-    print(f"[launches] per served generate: "
-          f"{json.dumps({n: r['launches'] for n, r in serve.items()})}", flush=True)
+    traced = {n: [r["jit_true"]["launches"], r["jit_false"]["launches"]]
+              for n, r in serve.items()}
+    print(f"[launches] a traced generate's, jit=True (its prefill graph's kernel nodes) and "
+          f"jit=False (the wrappers'): "
+          f"{json.dumps(traced)}", flush=True)
     for name in SERVE_MODELS:
         phase_serve_check(name, device)
 
@@ -2679,8 +2873,9 @@ def main() -> int:
                    for r in dry["shares"]}}), flush=True)
     del trained
 
-    def served(kernel: str) -> int:  # launches over every served generate
-        return sum(r["launches"][kernel] for r in serve.values())
+    def served(kernel: str) -> int:  # the wrappers' launches over the counted generates
+        return sum(r[jit]["launches_wrappers"][kernel] for r in serve.values()
+                   for jit in ("jit_true", "jit_false"))
 
     # the bf16 main path's kernels
     sources = {"flash_attention": "flash_attention_mma", "ssd_scan": "ssd_scan_mma"}

@@ -88,7 +88,9 @@ def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return einsum("bshk,hkd->bsd", o, wo.to(o.dtype))
 
 
-def _positions(h: torch.Tensor, start: int = 0) -> torch.Tensor:
+def _positions(h: torch.Tensor, start: int | torch.Tensor = 0) -> torch.Tensor:
+    """Positions start..start+S-1 a row; ``start`` an int or a 0-d integer
+    tensor on ``h``'s device (read there alone)."""
     B, S = h.shape[0], h.shape[1]
     return (start + torch.arange(S, device=h.device))[None, :].expand(B, S)
 
@@ -198,10 +200,12 @@ def init_encdec_cache(cfg: ModelConfig, batch_size: int, max_len: int, enc_len: 
     return {"self": (zeros(max_len), zeros(max_len)), "cross": (zeros(enc_len), zeros(enc_len))}
 
 
-def encdec_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, cache, tokens, idx: int):
+def encdec_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, cache, tokens,
+                       idx: int | torch.Tensor):
     """One decoder token with cached self and cross attention: the token's
-    self K/V is written at ``idx`` of every layer's cache, in place.
-    Returns (logits, cache)."""
+    self K/V is written at ``idx`` (an int, or a 0-d integer tensor on the
+    cache's device) of every layer's cache, in place.  Returns (logits,
+    cache)."""
     h = embed_lookup(params["embed"], tokens[:, None]).to(getattr(torch, cfg.dtype))
     pos = _positions(h, idx)
     (sk, sv), (xk, xv) = cache["self"], cache["cross"]

@@ -26,6 +26,7 @@ __all__ = [
     "make_rope_freqs",
     "apply_rope",
     "apply_mrope",
+    "decode_positions",
     "chunked_attention",
     "swiglu",
     "moe_layer",
@@ -50,7 +51,8 @@ def make_rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """Inverse frequencies, shape (head_dim // 2,), float32."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    # a fill on the device, not a copy from the host: a captured step may run it
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
 
 
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -89,6 +91,15 @@ def apply_mrope(
                     dim=-1)  # (B, S, half)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     return _rotate(x, cos, sin)
+
+
+def decode_positions(idx: int | torch.Tensor, shape: tuple[int, ...], device) -> torch.Tensor:
+    """A long tensor of ``shape`` holding the decode position ``idx`` in
+    every entry: filled from an int, or broadcast from a 0-d integer tensor
+    on ``device`` (a captured step's position) without a read on the host."""
+    if isinstance(idx, torch.Tensor):
+        return idx.to(device=device, dtype=torch.long).expand(shape)
+    return torch.full(shape, idx, dtype=torch.long, device=device)
 
 
 # ---------------------------------------------------------------------------

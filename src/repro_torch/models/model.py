@@ -31,6 +31,7 @@ with no card raises.
 
 from __future__ import annotations
 
+import operator
 from typing import Any
 
 import torch
@@ -214,17 +215,23 @@ class Model(nn.Module):
         return logits[:, -1].clone(), state  # a copy: the (B, S, V) logits are freed
 
     @torch.no_grad()
-    def decode_step(self, state, tokens: torch.Tensor, idx: int):
+    def decode_step(self, state, tokens: torch.Tensor, idx: int | torch.Tensor):
         """One token a row at cache position ``idx``; returns (logits,
-        state).  The state is updated in place and returned."""
+        state).  The state is updated in place and returned.  ``idx`` is an
+        int or a 0-d integer tensor on the model's device, as the JAX
+        package's decode takes a traced int32: a tensor is read on the
+        device alone (no host sync), so one captured step serves every
+        position.  Either gives the same logits and state bit for bit."""
         params = _for_use(self.params)
+        if not isinstance(idx, torch.Tensor):
+            idx = operator.index(idx)  # numpy ints too
         if self.cfg.family == "ssm":
-            return ssm.ssm_decode_step(self.cfg, self.ex, params, state, tokens, int(idx))
+            return ssm.ssm_decode_step(self.cfg, self.ex, params, state, tokens, idx)
         if self.cfg.family == "hybrid":
-            return rglru.hybrid_decode_step(self.cfg, self.ex, params, state, tokens, int(idx))
+            return rglru.hybrid_decode_step(self.cfg, self.ex, params, state, tokens, idx)
         if self.cfg.family == "encdec":
-            return encdec.encdec_decode_step(self.cfg, self.ex, params, state, tokens, int(idx))
-        return transformer.lm_decode_step(self.cfg, self.ex, params, state, tokens, int(idx))
+            return encdec.encdec_decode_step(self.cfg, self.ex, params, state, tokens, idx)
+        return transformer.lm_decode_step(self.cfg, self.ex, params, state, tokens, idx)
 
     def init_state(self, batch_size: int, max_len: int, enc_len: int | None = None):
         """The zero decode state; an enc-dec model's cross cache holds

@@ -30,7 +30,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels import ref as kref
 from ..sharding.ctx import einsum, embed_lookup, reshape, shard, write_slice
-from .layers import _NEG_INF, apply_rope, rms_norm, swiglu
+from .layers import _NEG_INF, apply_rope, decode_positions, rms_norm, swiglu
 from .params import ParamSpec
 from .ssm import _causal_conv, _conv_step, _head
 from .transformer import ExecConfig, _attn_dispatch, _layer, attn_specs, mlp_specs
@@ -159,10 +159,10 @@ def _rec_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, return_st
     )
 
 
-def _ring_positions(idx: int, window: int, device) -> torch.Tensor:
+def _ring_positions(idx: int | torch.Tensor, window: int, device) -> torch.Tensor:
     """Absolute position held by each ring slot after writing position
-    ``idx``: slot s holds idx - ((idx - s) mod window); < 0 means never
-    written."""
+    ``idx`` (an int, or a 0-d integer tensor on ``device``): slot s holds
+    idx - ((idx - s) mod window); < 0 means never written."""
     s = torch.arange(window, device=device)
     return idx - torch.remainder(idx - s, window)
 
@@ -194,7 +194,7 @@ def _attn_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, idx, ret
             new_state["ck"] = k[:, safe].to(dt)
             new_state["cv"] = v[:, safe].to(dt)
     else:
-        pos = torch.full((B, 1), idx, dtype=torch.long, device=h.device)
+        pos = decode_positions(idx, (B, 1), h.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
         ck, cv = state["ck"], state["cv"]
@@ -308,9 +308,11 @@ def hybrid_forward(cfg: ModelConfig, ex: ExecConfig, params: dict, batch: dict, 
 
 
 def hybrid_decode_step(cfg: ModelConfig, ex: ExecConfig, params: dict, state: dict, tokens,
-                       idx: int):
-    """One decode token a row at position ``idx``.  Each layer's new state is
-    written into ``state`` in place, which is returned with the logits."""
+                       idx: int | torch.Tensor):
+    """One decode token a row at position ``idx`` (an int, or a 0-d integer
+    tensor on the state's device, read there alone: the ring slot is
+    ``idx % local_window``).  Each layer's new state is written into
+    ``state`` in place, which is returned with the logits."""
     h = embed_lookup(params["embed"], tokens[:, None]).to(getattr(torch, cfg.dtype))
     n_super, rest = _pattern_split(cfg)
     layers = [(params["super"][str(i)], state["super"][str(i)], j, kind)

@@ -41,6 +41,7 @@ from .layers import (
     apply_mrope,
     apply_rope,
     chunked_attention,
+    decode_positions,
     moe_aux_loss,
     moe_layer,
     rms_norm,
@@ -389,14 +390,15 @@ def lm_decode_step(
     params: dict,
     cache,
     tokens: torch.Tensor,  # (B,) next-token ids
-    idx: int,  # current cache fill
+    idx: int | torch.Tensor,  # current cache fill
 ):
-    """One decode step: write the token's K/V at ``idx`` of every layer's
-    cache, in place, and return (logits, cache)."""
+    """One decode step: write the token's K/V at ``idx`` (an int, or a 0-d
+    integer tensor on the cache's device, read there alone) of every
+    layer's cache, in place, and return (logits, cache)."""
     B = tokens.shape[0]
     h = _embed(cfg, params, tokens[:, None])  # (B,1,D)
     shape = (B, 1, 3) if cfg.rope == "mrope" else (B, 1)  # M-RoPE: t = h = w = idx
-    pos = torch.full(shape, idx, dtype=torch.long, device=h.device)
+    pos = decode_positions(idx, shape, h.device)
     for i in range(cfg.n_layers):
         h, _, _ = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
                             cache=(cache[0][i], cache[1][i]), cache_idx=idx)

@@ -1,0 +1,183 @@
+"""A serving step captured as CUDA graphs: the port's counterpart of
+``jax.jit``.
+
+``CudaGraphStep(fn, device, pool=, donate=)`` wraps a step ``fn(*args)``
+whose arguments and results are tensors in nested dicts, tuples and lists.
+Like ``jax.jit``, which compiles a program for each abstract signature, it
+keeps one ``torch.cuda.CUDAGraph`` for each signature of its arguments
+(the tree's structure and each tensor's shape, dtype and device):
+
+* the first call of a signature runs ``fn`` eagerly on a side stream (the
+  warm-up, whose results this call returns: it fills lazy state such as
+  cuBLAS's handles and workspaces and builds the kernels, so that nothing
+  of the kind is allocated inside a capture), then captures ``fn`` on that
+  stream into a graph over static inputs: the arguments in ``donate``
+  themselves, clones of the rest;
+* a later call copies each argument that is not already its static input
+  into it (a donated one passed back, as a decode step's state, is not
+  copied) and replays the graph on the current stream, with no host sync.
+
+The results of a replay are the graph's own output tensors: they hold
+until the next replay of any graph in the same memory pool (the serving
+engine's prefill and decode graphs share one), so the caller consumes or
+copies them before that.  A donated argument is updated in place, as
+``jax.jit``'s ``donate_argnums`` lets XLA reuse its buffer.
+
+The kernels' launch counts (``kernels.counts``) count the launches their
+wrappers make, and a replay runs no wrapper: the capture's additions are
+taken back (a capture records kernels and launches none).  What a replay
+launches is read from the graph itself: ``kernels(key)`` names its kernel
+nodes as the CUDA runtime prints them (``cudaGraphDebugDotPrint``), which
+every replay launches once each, and ``launches(key)`` the wrappers'
+launches they stand for (``kernels.counts.seen``); ``replayed`` tallies
+them over the replays made.
+
+There is no fallback: a warm-up, capture or replay that fails raises (a
+host read inside ``fn``, such as ``.item()``, makes the capture fail), and
+nothing is retried eagerly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import os
+import re
+import tempfile
+import time
+import warnings
+from typing import Any, Callable
+
+import torch
+
+from .._tree import leaves, unflatten
+from ..kernels import counts
+
+__all__ = ["CudaGraphStep", "kernel_nodes", "signature"]
+
+
+def signature(tree: Any) -> tuple:
+    """The hashable abstract signature of a tree of tensors: its structure
+    and each tensor's shape, dtype and device."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, signature(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__, tuple(signature(t) for t in tree))
+    raise TypeError(f"a captured step takes tensors in dicts, tuples and lists; got "
+                    f"{type(tree).__name__}")
+
+
+def kernel_nodes(dot: str) -> list[str]:
+    """The kernel nodes of a graph that ``cudaGraphDebugDotPrint`` printed
+    as ``dot``: for each, the line that names it (its ID, then its mangled
+    name and launch shape); the other nodes (copies, sets) left out."""
+    return [m.group(1) for m in re.finditer(r'label="\{\s*KERNEL\s*\n(\| \{ID \|[^\n]*)', dot)]
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    inputs: list  # the static input tensors, in leaf order
+    outputs: Any  # the static output tree
+    replays: int = 0
+    launches: dict | None = None  # one replay's, read from the graph on first use
+
+
+class CudaGraphStep:
+    """``fn`` captured as a CUDA graph per argument signature (see the
+    module's docstring).  ``graphs`` holds the captures by signature,
+    ``captures`` a record of each (its signature and the ms of its first
+    call: warm-up and capture)."""
+
+    def __init__(self, fn: Callable, device: torch.device, *, pool=None,
+                 donate: tuple[int, ...] = ()) -> None:
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph captures work on a CUDA device, not {device}")
+        self.fn = fn
+        self.device = device
+        self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
+        self.donate = frozenset(donate)
+        self.graphs: dict[tuple, _Graph] = {}
+        self.captures: list[dict] = []
+        self._stream = torch.cuda.Stream(device)
+
+    def __call__(self, *args: Any) -> Any:
+        key = signature(args)
+        entry = self.graphs.get(key)
+        if entry is None:
+            return self._capture(key, args)
+        for static, leaf in zip(entry.inputs, leaves(args), strict=True):
+            if static is not leaf:
+                static.copy_(leaf)
+        entry.graph.replay()
+        entry.replays += 1
+        return entry.outputs
+
+    def kernels(self, key: tuple) -> list[str]:
+        """The kernel nodes of the graph captured for signature ``key``,
+        each launched once by every replay, named as the CUDA runtime
+        prints them (``kernel_nodes``)."""
+        with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # debug_dump announces itself
+            path = os.path.join(tmp, "graph.dot")
+            self.graphs[key].graph.debug_dump(path)
+            with open(path) as f:
+                return kernel_nodes(f.read())
+
+    def launches(self, key: tuple) -> dict[str, int]:
+        """The wrappers' launches one replay of ``key``'s graph makes, by
+        ``kernels.counts``' names: its kernel nodes' (``counts.seen``)."""
+        entry = self.graphs[key]
+        if entry.launches is None:
+            entry.launches = counts.seen(self.kernels(key))
+        return entry.launches
+
+    @property
+    def replayed(self) -> dict[str, int]:
+        """The wrappers' launches of every replay so far: each graph's
+        ``launches`` times its replays."""
+        out: dict[str, int] = {}
+        for key, entry in self.graphs.items():
+            if entry.replays:
+                for name, n in self.launches(key).items():
+                    out[name] = out.get(name, 0) + n * entry.replays
+        return out
+
+    def _capture(self, key: tuple, args: tuple) -> Any:
+        t0 = time.perf_counter()
+        static = [leaf for i, arg in enumerate(args)
+                  for leaf in (leaves(arg) if i in self.donate else
+                               [t.clone() for t in leaves(arg)])]
+        static_args = unflatten(args, static)
+        with torch.cuda.device(self.device):
+            cur = torch.cuda.current_stream()
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                out = self.fn(*args)  # the warm-up: this call's result
+            cur.wait_stream(self._stream)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for ``kernels``
+            graph.enable_debug_mode()
+            before = counts.read()
+            # A graph freed while another is captured (an unreachable engine
+            # collected by Python's cycle collector) invalidates the capture:
+            # collect now, and not again until the capture ends.
+            gc_on = gc.isenabled()
+            gc.collect()
+            gc.disable()
+            try:
+                # torch.cuda.graph synchronises and releases the warm-up's
+                # cached blocks before it begins
+                with torch.cuda.graph(graph, pool=self.pool, stream=self._stream):
+                    static_out = self.fn(*static_args)
+            finally:
+                if gc_on:
+                    gc.enable()
+                counts.add({name: -n for name, n in counts.delta(counts.read(), before).items()})
+            graph.instantiate()
+            torch.cuda.synchronize()
+        self.graphs[key] = _Graph(graph, static, static_out)
+        self.captures.append({"signature": key, "ms": (time.perf_counter() - t0) * 1e3})
+        return out

@@ -333,20 +333,32 @@ def expertwise(fn, rows: tuple, experts: tuple = (), *, weight: torch.Tensor, pa
     return tuple(_FromLocal.apply(o, mesh, out_pl, grad_pl) for o in outs)
 
 
-def write_slice(dst: torch.Tensor, src: torch.Tensor, start: int, dim: int = 1) -> None:
+def write_slice(dst: torch.Tensor, src: torch.Tensor, start: int | torch.Tensor,
+                dim: int = 1) -> None:
     """``dst.narrow(dim, start, n).copy_(src)`` with ``n = src.shape[dim]``,
-    in place: a decode step's write into its cache.  On a DTensor ``dst``
-    each device writes the part of the window that falls in its own shard
-    of ``dim`` (``src`` whole along ``dim`` there), as XLA's
-    dynamic-update-slice does; DTensor's own slicing would gather a
-    sharded ``dim`` and write into the gathered copy."""
+    in place: a decode step's write into its cache.  ``start`` is an int
+    or, on a plain ``dst``, a 0-d integer tensor on its device (a captured
+    decode step's position): the window is then written by ``index_copy_``
+    at ``start + arange(n)``, with no read of ``start`` on the host.  On a
+    DTensor ``dst`` (an int ``start``) each device writes the part of the
+    window that falls in its own shard of ``dim`` (``src`` whole along
+    ``dim`` there), as XLA's dynamic-update-slice does; DTensor's own
+    slicing would gather a sharded ``dim`` and write into the gathered
+    copy."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     n = src.shape[dim]
     if not isinstance(dst, DTensor):
-        dst.narrow(dim, start, n).copy_(src)
+        if isinstance(start, torch.Tensor):
+            index = start.to(torch.long) + torch.arange(n, device=dst.device)
+            dst.index_copy_(dim, index, src.to(dst.dtype))
+        else:
+            dst.narrow(dim, start, n).copy_(src)
         return
+    if isinstance(start, torch.Tensor):
+        raise TypeError("write_slice into a DTensor takes an int start (the window's shard "
+                        "is found on the host); got a tensor")
     mesh = dst.device_mesh
     local_shape, offset = compute_local_shape_and_global_offset(dst.shape, mesh, dst.placements)
     want = [Replicate() if p.is_shard(dim) else p for p in dst.placements]

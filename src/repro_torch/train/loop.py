@@ -4,7 +4,9 @@ Deterministic end to end: data is a pure function of the step counter
 (see ``repro_torch.data``), so a restart from a checkpoint reproduces the
 run's loss curve (bit for bit on the CPU; on CUDA the backward of the
 embedding gather accumulates with atomics, in no fixed order).  The step
-runs eagerly: the JAX package's jit with donation has no counterpart here.
+runs eagerly: the counterpart of the JAX package's ``TrainLoop(jit=True,
+donate=True)``, a CUDA graph of the step as serving has for its steps
+(``serve.graphs.CudaGraphStep``), is still to come.
 """
 
 from __future__ import annotations
