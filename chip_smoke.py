@@ -139,15 +139,28 @@ Phases (each raises on failure, so any failure exits non-zero):
     on the differentiable ``attn_impl="xla"`` route: (a) one AdamW step at
     float32, seq 256, batch 2, on the card and on the CPU from the same
     weights (drawn on the CPU), loss and grad norm within 1e-3 relative,
-    and the largest relative difference of any updated leaf; (b)
-    ``launch.train.build_loop(full=True)`` for 30 bfloat16 steps on float32
-    master weights at train_4k's seq 4096 with the batch cut from 256 to 8:
-    the mean loss of the last 5 steps below that of the first 5, no kernel
-    launched in the steps, ms a step (median of steps 4-30), tokens/s, peak
-    memory and the device's busy share of one traced step; (c) 10 steps, a
-    checkpoint and a fresh loop resumed to 20 against 20 straight steps at
-    seq 1024, batch 4, params within 1e-2 (bitwise reported, not required:
-    the card's embedding backward may accumulate in any order); (d) the
+    and the largest relative difference of any updated leaf; then two
+    steps of ``TrainLoop(jit=True)``'s captured step (the warm-up and
+    capture, then a replay) against two eager steps on the card: loss and
+    grad norm of each, and every updated leaf, within 1e-6 relative
+    (bitwise reported); (b) ``launch.train.build_loop(full=True)`` for 30
+    bfloat16 steps on float32 master weights at train_4k's seq 4096 with
+    the batch cut from 256 to 8, each step a replay of one CUDA graph of
+    the whole step over the donated state (``TrainLoop``'s default
+    ``jit=True, donate=True``; one capture, 29 replays): the mean loss of
+    the last 5 steps below that of the first 5, no kernel launched in the
+    steps and no node of kernels 3-5 in the graph, ms a step (median of
+    steps 4-30), the first call's ms (warm-up and capture), tokens/s, peak
+    memory allocated and reserved, the graph's kernel nodes and the
+    device's busy share of one traced replay; (b') ``TrainLoop(jit=False)``
+    for 8 steps from the same seed: each loss and grad norm within 1e-3
+    relative of the captured run's (bitwise reported), its ms a step and
+    peak beside the captured ones; (c) 10 captured steps, a checkpoint and
+    a fresh captured loop resumed to 20 against 20 straight captured steps
+    at seq 1024, batch 4, params within 1e-2 (bitwise reported, not
+    required: the card's embedding backward may accumulate in any order);
+    (d) at the params of (b)'s step 30 (cloned before the traced replay,
+    which moves the donated state on), the
     loss under no_grad on ``attn_impl="pallas"`` launches kernel 3 once a
     layer (30, on the tensor cores) and agrees with the "xla" route's
     within 2e-2, the train step on "pallas" raises the wrapper's error, and
@@ -196,8 +209,9 @@ is read from a traced ``generate``'s device kernels
 (``repro_torch.kernels.counts.seen``), and the last line's counts for
 kernels 3-5 are the wrappers' own; for phase 13, around each run on the card; for
 phase 14, around (a)'s card step, (b)'s 30 steps (which must launch no
-kernel) and (d)'s no-grad loss on the "pallas" route; for phase 15, around
-(b)'s DTensor step, which must launch none; for
+kernel; a replay runs no wrapper, and the graph's kernel nodes must stand
+for none of kernels 3-5) and (d)'s no-grad loss on the "pallas" route; for
+phase 15, around (b)'s DTensor step, which must launch none; for
 phase 12, around the warm replans of (a)-(b)
 alone, around each call on the card's service in (c), around
 ``power_premium`` and around ``run_fault_injection`` in (d), where the warm
@@ -333,6 +347,8 @@ SERVE_GRID, CHECK_GRID = 16, 8
 # limit; 30 steps at lr 1e-3 on the launcher's warm-up cosine schedule.
 TRAIN = dict(arch="smollm-135m", seq_len=4096, batch=8, steps=30, lr=1e-3, shape="train_4k")
 TRAIN_CHECK = dict(seq_len=256, batch=2, lr=1e-3, rel_tol=1e-3)  # (a): float32, card vs CPU
+TRAIN_JIT_REL_TOL = 1e-6  # (a): float32, the captured step vs the eager one on the card
+TRAIN_EAGER = dict(steps=8, rel_tol=1e-3)  # (b'): TrainLoop(jit=False) vs (b)'s first steps
 TRAIN_RESUME = dict(seq_len=1024, batch=4, steps=20, atol=1e-2)  # (c): resume at step 10
 TRAIN_ROUTE_TOL = 2e-2  # (d): the bf16 tolerance of the reference kernel tests
 
@@ -2319,16 +2335,66 @@ def _train_batch(cfg, seq_len: int, batch: int, step: int, device) -> dict:
     return {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in raw.items()}
 
 
+def _leaf_rel(got, want) -> float:
+    """The largest difference of any leaf, relative to the leaf's largest
+    magnitude (``want``'s)."""
+    from repro_torch._tree import leaves
+
+    return max(float((a.to(b.device).float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(leaves(got), leaves(want), strict=True))
+
+
+def _bitwise(got, want) -> bool:
+    import torch
+
+    from repro_torch._tree import leaves
+
+    return all(torch.equal(a.to(b.device), b)
+               for a, b in zip(leaves(got), leaves(want), strict=True))
+
+
+def _captured_vs_eager(model, opt, state, batches: list) -> dict:
+    """``TrainLoop(jit=True)``'s captured step (its first call the warm-up
+    and capture, the next ones replays) against the eager step, each from
+    ``state`` over ``batches``: per-step losses and grad norms, and the
+    final states' largest leaf difference."""
+    from repro_torch._tree import tree_map
+    from repro_torch.serve.graphs import CudaGraphStep
+    from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
+
+    loop = TrainLoop(model, opt, None, TrainLoopConfig(), jit=True)
+    if not isinstance(loop.step_fn, CudaGraphStep):
+        raise AssertionError(f"TrainLoop(jit=True) on {model.device}: step {loop.step_fn}")
+    captured = tree_map(lambda t: t.clone(), state)
+    eager_step = make_train_step(model, opt)
+    eager = state
+    got, want = [], []
+    for batch in batches:
+        captured, g = loop.step_fn(captured, batch)
+        eager, w = eager_step(eager, batch)
+        got.append({k: float(g[k]) for k in ("loss", "grad_norm")})
+        want.append({k: float(w[k]) for k in ("loss", "grad_norm")})
+    (entry,) = loop.step_fn.graphs.values()
+    rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want) for k in g)
+    return {"steps": len(batches), "replays": entry.replays, "captured": got, "eager": want,
+            "rel_diff": rel, "max_leaf_rel_diff": _leaf_rel(captured, eager),
+            "bitwise": got == want and _bitwise(captured, eager)}
+
+
 def phase_train_check(device) -> dict:
     """(a) One AdamW step of full-width smollm-135m at float32 on the card
     and on the CPU from the same weights (drawn on the CPU) and batch:
     loss and grad norm within rel_tol; the largest relative difference
-    (to the leaf's largest magnitude) of any updated leaf."""
+    (to the leaf's largest magnitude) of any updated leaf.  Then two steps
+    of the captured step (warm-up and capture, then a replay) against two
+    eager steps on the card, from the same weights: losses, grad norms and
+    every updated leaf within TRAIN_JIT_REL_TOL; bitwise reported."""
     import dataclasses
 
     import torch
 
-    from repro_torch._tree import leaves, tree_map
+    from repro_torch._tree import tree_map
     from repro_torch.configs import get_arch
     from repro_torch.models import ExecConfig, Model
     from repro_torch.optim import AdamW
@@ -2344,39 +2410,55 @@ def phase_train_check(device) -> dict:
     gpu_state = tree_map(lambda t: t.to(device), cpu_state)
     S, B = TRAIN_CHECK["seq_len"], TRAIN_CHECK["batch"]
     batch = _train_batch(cfg, S, B, 0, "cpu")
+    jit, jit_counts = _counted(lambda: _captured_vs_eager(
+        gpu_model, opt, gpu_state, [_on(batch, device), _train_batch(cfg, S, B, 1, device)]))
     (gpu_state, g), counts = _counted(
         lambda: make_train_step(gpu_model, opt)(gpu_state, _on(batch, device)))
-    if any(_ml_launches(counts).values()):
-        raise AssertionError(f"train check: the card's step launched kernels {counts}")
+    if any(_ml_launches(counts).values()) or any(_ml_launches(jit_counts).values()):
+        raise AssertionError(f"train check: the card's steps launched kernels {counts}, "
+                             f"{jit_counts}")
     cpu_state, c = make_train_step(cpu_model, opt)(cpu_state, batch)
     rel = {k: abs(float(g[k]) - float(c[k])) / abs(float(c[k])) for k in ("loss", "grad_norm")}
-    worst = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                for a, b in zip(leaves(gpu_state.params), leaves(cpu_state.params), strict=True))
+    worst = _leaf_rel(gpu_state.params, cpu_state.params)
     rec = {"model": cfg.name, "dtype": "float32", "seq_len": S, "batch": B,
            "loss": [float(g["loss"]), float(c["loss"])],
            "grad_norm": [float(g["grad_norm"]), float(c["grad_norm"])],
            "rel_diff": rel, "rel_tol": TRAIN_CHECK["rel_tol"],
-           "max_leaf_rel_diff_after_update": worst}
+           "max_leaf_rel_diff_after_update": worst,
+           "captured_vs_eager": {**jit, "rel_tol": TRAIN_JIT_REL_TOL}}
     print("[train-check] " + json.dumps(rec), flush=True)
     if max(rel.values()) > TRAIN_CHECK["rel_tol"] or not all(
             np.isfinite([float(g["loss"]), float(g["grad_norm"])])):
         raise AssertionError(f"train check: card vs CPU differ by {rel} (tolerance "
                              f"{TRAIN_CHECK['rel_tol']})")
+    if not (jit["rel_diff"] <= TRAIN_JIT_REL_TOL and jit["max_leaf_rel_diff"] <= TRAIN_JIT_REL_TOL
+            and jit["replays"] == 1):
+        raise AssertionError(f"train check: the captured step differs from the eager one by "
+                             f"{jit['rel_diff']} (metrics), {jit['max_leaf_rel_diff']} (leaves); "
+                             f"{jit['replays']} replays (tolerance {TRAIN_JIT_REL_TOL})")
     del gpu_state, cpu_state, gpu_model
+    gc.collect()
     torch.cuda.empty_cache()
     return rec
 
 
 def phase_train(device) -> dict:
     """(b) launch.train.build_loop at full width and depth in bfloat16 on
-    float32 master weights: 30 steps whose loss falls and that launch no
-    kernel; ms a step (median of steps 4-30), tokens/s, peak memory, and the
-    device's busy share of one traced step.  Returns the record and the
-    trained state."""
+    float32 master weights, captured (``TrainLoop``'s defaults: one CUDA
+    graph of the step over the donated state): 30 steps whose loss falls,
+    that launch no kernel and whose graph holds no node of kernels 3-5, in
+    one capture and 29 replays; ms a step (median of steps 4-30), the
+    first call's ms (warm-up and capture), tokens/s, peak memory allocated
+    and reserved, the graph's kernel nodes, and the device's busy share of
+    one traced replay.  Returns the record, a clone of the state after step
+    30 (the traced replay moves the donated state on to step 31) and the
+    losses and grad norms."""
     import torch
 
+    from repro_torch._tree import leaves, tree_map
     from repro_torch.configs.shapes import get_shape
     from repro_torch.launch.train import build_loop
+    from repro_torch.serve.graphs import CudaGraphStep
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2387,6 +2469,9 @@ def phase_train(device) -> dict:
           f"from {published.global_batch} to {B}", flush=True)
     loop, _ = build_loop(TRAIN["arch"], full=True, seq_len=S, batch=B, steps=steps,
                          lr=TRAIN["lr"], log_every=0, device=device)
+    if not isinstance(loop.step_fn, CudaGraphStep):
+        raise AssertionError(f"train: build_loop's step on the card is {loop.step_fn}, not a "
+                             f"CudaGraphStep")
     t0 = time.perf_counter()
     state, counts = _counted(lambda: loop.run(torch.Generator(device).manual_seed(0)))
     run_s = time.perf_counter() - t0
@@ -2396,52 +2481,146 @@ def phase_train(device) -> dict:
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     if len(losses) != steps or not np.isfinite(losses).all() or not last < first:
         raise AssertionError(f"train: loss did not fall: first 5 {first}, last 5 {last}")
+    graph = loop.step_fn
+    (key,) = graph.graphs
+    replays = graph.graphs[key].replays
+    nodes = graph.kernels(key)
+    node_launches = graph.launches(key)
+    if len(graph.captures) != 1 or replays != steps - 1:
+        raise AssertionError(f"train: {len(graph.captures)} captures and {replays} replays; "
+                             f"want 1 and {steps - 1}")
+    if node_launches:  # the XLA route: no kernel of the repository in the step
+        raise AssertionError(f"train: the step's graph holds kernels {node_launches}")
     step_ms = statistics.median(h["step_time"] for h in loop.history[3:]) * 1e3
+    peak = {"allocated": torch.cuda.max_memory_allocated(device) / 1e9,
+            "reserved": torch.cuda.max_memory_reserved(device) / 1e9}
+    gc.collect()  # what stays allocated between steps: the state, the graph's outputs
+    between = torch.cuda.memory_allocated(device) / 1e9
+    state_gb = sum(t.numel() * t.element_size() for t in leaves(state)) / 1e9
+    kept = tree_map(lambda t: t.clone(), state)  # step 30's, for (d)
     batch = _train_batch(loop.model.cfg, S, B, steps, device)
     split = _device_split(lambda: (loop.step_fn(state, batch), torch.cuda.synchronize()),
                           kernels=())
+    if int(state.step) != steps + 1 or int(kept.step) != steps:
+        raise AssertionError(f"train: donated state at step {int(state.step)}, kept "
+                             f"{int(kept.step)}")
     rec = {"model": TRAIN["arch"], "layers": loop.model.cfg.n_layers,
            "d_model": loop.model.cfg.d_model, "dtype": loop.model.cfg.dtype,
            "master_dtype": "float32", "attn_impl": loop.model.ex.attn_impl,
            "remat": loop.model.ex.remat, "params": loop.model.n_params(),
            "seq_len": S, "batch": B, "published_batch": published.global_batch,
-           "steps": steps, "loss_first5_mean": first, "loss_last5_mean": last,
+           "steps": steps, "jit": True, "donate": True, "captures": len(graph.captures),
+           "replays": replays, "first_call_ms": loop.history[0]["step_time"] * 1e3,
+           "capture_ms": graph.captures[0]["ms"], "kernel_nodes": len(nodes),
+           "node_launches": node_launches,
+           "loss_first5_mean": first, "loss_last5_mean": last,
            "losses": losses, "run_s": run_s, "ms_per_step_median_4_30": step_ms,
            "tokens_per_s": B * S / (step_ms / 1e3),
-           "card_gb_peak": torch.cuda.max_memory_allocated(device) / 1e9,
+           "card_gb_peak": peak["allocated"], "card_gb_peak_reserved": peak["reserved"],
+           "card_gb_between_steps": between, "state_gb": state_gb,
            "launches": counts, "device_us_one_step": split}
     print("[train] " + json.dumps(rec), flush=True)
-    return {"rec": rec, "state": state, "batch": batch, "cfg": loop.model.cfg}
+    out = {"rec": rec, "state": kept, "batch": batch, "cfg": loop.model.cfg,
+           "grad_norms": [h["grad_norm"] for h in loop.history]}
+    del loop, graph, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_eager(device, trained: dict) -> dict:
+    """(b') ``TrainLoop(jit=False)`` over (b)'s model, optimizer and batches
+    for TRAIN_EAGER["steps"] steps from the same seed: each loss and grad
+    norm within rel_tol of the captured run's; bitwise reported; its ms a
+    step (median of steps 4-8) and peak memory beside the captured ones."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.train import build_loop
+    from repro_torch.serve.graphs import CudaGraphStep
+    from repro_torch.train import TrainLoop
+
+    S, B, n = TRAIN["seq_len"], TRAIN["batch"], TRAIN_EAGER["steps"]
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device) / 1e9  # (b)'s state, kept for (d)
+    proto, _ = build_loop(TRAIN["arch"], full=True, seq_len=S, batch=B, steps=TRAIN["steps"],
+                          lr=TRAIN["lr"], log_every=0, device=device)
+    loop = TrainLoop(proto.model, proto.optimizer, proto.batch_fn,
+                     dataclasses.replace(proto.config, total_steps=n), jit=False)
+    if isinstance(loop.step_fn, CudaGraphStep):
+        raise AssertionError("train eager: TrainLoop(jit=False) captured its step")
+    _, counts = _counted(lambda: loop.run(torch.Generator(device).manual_seed(0)))
+    if any(_ml_launches(counts).values()):
+        raise AssertionError(f"train eager: the steps launched kernels {counts}")
+    got = {"loss": [h["loss"] for h in loop.history],
+           "grad_norm": [h["grad_norm"] for h in loop.history]}
+    want = {"loss": trained["rec"]["losses"][:n], "grad_norm": trained["grad_norms"][:n]}
+    rel = max(abs(g - w) / abs(w) for k in got for g, w in zip(got[k], want[k], strict=True))
+    rec = {"model": TRAIN["arch"], "seq_len": S, "batch": B, "steps": n, "jit": False,
+           "losses": got["loss"], "grad_norms": got["grad_norm"],
+           "rel_diff_vs_captured": rel, "rel_tol": TRAIN_EAGER["rel_tol"],
+           "bitwise_vs_captured": got == want,
+           "ms_per_step_median_4_8": statistics.median(
+               h["step_time"] for h in loop.history[3:]) * 1e3,
+           "captured_ms_per_step_median_4_30": trained["rec"]["ms_per_step_median_4_30"],
+           "first_call_ms": loop.history[0]["step_time"] * 1e3,
+           "card_gb_peak": torch.cuda.max_memory_allocated(device) / 1e9,
+           "card_gb_peak_reserved": torch.cuda.max_memory_reserved(device) / 1e9,
+           "card_gb_held_before": held, "launches": counts}
+    print("[train-eager] " + json.dumps(rec), flush=True)
+    if not rel <= TRAIN_EAGER["rel_tol"] or len(got["loss"]) != n:
+        raise AssertionError(f"train eager: jit=False differs from the captured run by {rel} "
+                             f"(tolerance {TRAIN_EAGER['rel_tol']})")
+    del loop, proto
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_train_resume(device) -> dict:
-    """(c) 10 steps, a checkpoint, and a fresh TrainLoop resumed to 20,
-    against 20 steps straight through: params within atol (bf16 compute:
-    the embedding gather's backward accumulates in no fixed order on the
-    card, so bitwise equality is reported, not required)."""
+    """(c) 10 captured steps, a checkpoint, and a fresh captured TrainLoop
+    resumed to 20, against 20 captured steps straight through: params
+    within atol (bf16 compute: the embedding gather's backward accumulates
+    in no fixed order on the card, so bitwise equality is reported, not
+    required); each loop one capture, the other steps replays."""
     import tempfile
 
     import torch
 
     from repro_torch._tree import leaves
     from repro_torch.launch.train import build_loop
+    from repro_torch.serve.graphs import CudaGraphStep
+
+    def replays(loop) -> list:
+        if not isinstance(loop.step_fn, CudaGraphStep):
+            raise AssertionError(f"resume: the loop's step is {loop.step_fn}")
+        return [len(loop.step_fn.captures)] + [e.replays for e in loop.step_fn.graphs.values()]
 
     kw = dict(full=True, seq_len=TRAIN_RESUME["seq_len"], batch=TRAIN_RESUME["batch"],
               steps=TRAIN_RESUME["steps"], lr=TRAIN["lr"], log_every=0, device=device)
+    half = TRAIN_RESUME["steps"] // 2
     straight, _ = build_loop(TRAIN["arch"], **kw)
     state_a = straight.run(torch.Generator(device).manual_seed(1))
     with tempfile.TemporaryDirectory() as ck:
         first, _ = build_loop(TRAIN["arch"], ckpt_dir=ck, **kw)
-        first.config.total_steps = first.config.ckpt_every = TRAIN_RESUME["steps"] // 2
+        first.config.total_steps = first.config.ckpt_every = half
         first.run(torch.Generator(device).manual_seed(1))
         resumed, _ = build_loop(TRAIN["arch"], ckpt_dir=ck, **kw)
         state_b = resumed.run(torch.Generator(device).manual_seed(2))
-    if int(resumed.history[0]["step"]) != TRAIN_RESUME["steps"] // 2:
+    if int(resumed.history[0]["step"]) != half:
         raise AssertionError(f"resume: started at step {resumed.history[0]['step']}")
+    graphs = {"straight": replays(straight), "first": replays(first),
+              "resumed": replays(resumed)}
+    want = {"straight": [1, TRAIN_RESUME["steps"] - 1], "first": [1, half - 1],
+            "resumed": [1, half - 1]}
+    if graphs != want:
+        raise AssertionError(f"resume: [captures, replays] {graphs}; want {want}")
     pairs = list(zip(leaves(state_a.params), leaves(state_b.params), strict=True))
     diff = max(float((a - b).abs().max()) for a, b in pairs)
     rec = {"model": TRAIN["arch"], "seq_len": TRAIN_RESUME["seq_len"],
-           "batch": TRAIN_RESUME["batch"], "steps": TRAIN_RESUME["steps"],
+           "batch": TRAIN_RESUME["batch"], "steps": TRAIN_RESUME["steps"], "jit": True,
+           "captures_replays": graphs,
            "resumed_at": resumed.history[0]["step"], "max_abs_param_diff": diff,
            "bitwise": all(torch.equal(a, b) for a, b in pairs), "atol": TRAIN_RESUME["atol"],
            "loss_straight_vs_resumed_last": [straight.history[-1]["loss"],
@@ -2449,15 +2628,19 @@ def phase_train_resume(device) -> dict:
     print("[train-resume] " + json.dumps(rec), flush=True)
     if not diff <= TRAIN_RESUME["atol"]:
         raise AssertionError(f"resume: params differ by {diff} (atol {TRAIN_RESUME['atol']})")
+    del straight, first, resumed, state_a, state_b, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
     return rec
 
 
 def phase_train_route(device, trained: dict) -> dict:
-    """(d) The route is the caller's: Model.loss under no_grad on
-    attn_impl="pallas" launches kernel 3 once a layer and agrees with the
-    "xla" route's loss within the bf16 tolerance; the train step on the
-    "pallas" route raises the wrapper's error.  Kernel 3 is also timed at
-    this shape beside its plain version and SDPA."""
+    """(d) The route is the caller's, at (b)'s state after step 30 (a
+    clone): Model.loss under no_grad on attn_impl="pallas" launches kernel
+    3 once a layer and agrees with the "xla" route's loss within the bf16
+    tolerance; the (eager) train step on the "pallas" route raises the
+    wrapper's error.  Kernel 3 is also timed at this shape beside its plain
+    version and SDPA."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -2845,16 +3028,29 @@ def main() -> int:
     # no-grad loss on the "pallas" route)
     train_check = phase_train_check(device)
     trained = phase_train(device)
+    train_eager = phase_train_eager(device, trained)
     train_resume = phase_train_resume(device)
     train_route = phase_train_route(device, trained)
     print("[train-summary] " + json.dumps({
         "card": card, "ms_per_step": trained["rec"]["ms_per_step_median_4_30"],
+        "ms_per_step_eager": train_eager["ms_per_step_median_4_8"],
+        "first_call_ms": trained["rec"]["first_call_ms"],
         "tokens_per_s": trained["rec"]["tokens_per_s"],
         "card_gb_peak": trained["rec"]["card_gb_peak"],
+        "card_gb_peak_reserved": trained["rec"]["card_gb_peak_reserved"],
+        "card_gb_peak_eager_less_held": train_eager["card_gb_peak"]
+        - train_eager["card_gb_held_before"],
+        "card_gb_between_steps": trained["rec"]["card_gb_between_steps"],
+        "kernel_nodes": trained["rec"]["kernel_nodes"],
         "device_busy_share": trained["rec"]["device_us_one_step"].get("device_busy_share"),
         "loss_first5_last5": [trained["rec"]["loss_first5_mean"],
                               trained["rec"]["loss_last5_mean"]],
         "card_vs_cpu_rel": train_check["rel_diff"],
+        "captured_vs_eager_f32": [train_check["captured_vs_eager"]["rel_diff"],
+                                  train_check["captured_vs_eager"]["max_leaf_rel_diff"],
+                                  train_check["captured_vs_eager"]["bitwise"]],
+        "eager_vs_captured_bf16": [train_eager["rel_diff_vs_captured"],
+                                   train_eager["bitwise_vs_captured"]],
         "resume_max_abs_diff": train_resume["max_abs_param_diff"],
         "route_launches": train_route["pallas_route_launches"]["flash_attention"]}), flush=True)
 

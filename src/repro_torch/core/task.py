@@ -114,6 +114,10 @@ class Task:
     def powers(self) -> np.ndarray:
         return np.asarray([v.power for v in self.variants], dtype=np.float64)
 
+    def weight(self, j: int) -> float:
+        """Task weight e_ij / p_i of variant ``j`` (DP-Fair weight)."""
+        return (self.data / self.variants[j].throughput) / self.period
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceProfile:
@@ -219,6 +223,10 @@ class FleetSpec:
     @property
     def t_cfg_min(self) -> float:
         return min(d.t_cfg for d in self.devices) if self.devices else self.t_cfg
+
+    @property
+    def t_cfg_max(self) -> float:
+        return max(d.t_cfg for d in self.devices) if self.devices else self.t_cfg
 
     @property
     def capacity(self) -> float:

@@ -11,7 +11,10 @@ backward), with the config's activation checkpointing (``cfg.remat``).
 
 The flags are the JAX package's ``launch/train.py``'s, plus ``--device``:
 ``cuda`` (the default) trains on the card and raises without one; ``cpu``
-trains on the CPU.
+trains on the CPU.  ``build_loop`` builds ``TrainLoop`` with the
+reference's defaults, ``jit=True, donate=True``: on the card every step is
+a replay of one CUDA graph of the whole step over the donated train state
+(the first step warms up and captures); on the CPU the steps run eagerly.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ def build_loop(
     device: torch.device | str = "cuda",
 ) -> tuple[TrainLoop, InputShape]:
     """The JAX package's loop, on ``device`` (a CUDA device on a host
-    without one raises)."""
+    without one raises): ``TrainLoop``'s defaults, so captured and donated
+    on the card, eager on the CPU."""
     cfg = get_arch(arch)
     if not full:
         cfg = cfg.reduced()

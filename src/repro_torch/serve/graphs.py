@@ -1,8 +1,9 @@
-"""A serving step captured as CUDA graphs: the port's counterpart of
+"""A serving or training step captured as CUDA graphs: the port's counterpart of
 ``jax.jit``.
 
 ``CudaGraphStep(fn, device, pool=, donate=)`` wraps a step ``fn(*args)``
-whose arguments and results are tensors in nested dicts, tuples and lists.
+whose arguments and results are tensors in nested dicts, tuples, lists and
+dataclasses (``None`` an empty subtree, as in ``_tree``).
 Like ``jax.jit``, which compiles a program for each abstract signature, it
 keeps one ``torch.cuda.CUDAGraph`` for each signature of its arguments
 (the tree's structure and each tensor's shape, dtype and device):
@@ -56,17 +57,22 @@ from ..kernels import counts
 __all__ = ["CudaGraphStep", "kernel_nodes", "signature"]
 
 
-def signature(tree: Any) -> tuple:
+def signature(tree: Any) -> tuple | None:
     """The hashable abstract signature of a tree of tensors: its structure
     and each tensor's shape, dtype and device."""
+    if tree is None:  # an empty subtree, as in ``_tree``
+        return None
     if isinstance(tree, torch.Tensor):
         return (tuple(tree.shape), tree.dtype, tree.device)
     if isinstance(tree, dict):
         return ("dict", tuple((k, signature(tree[k])) for k in sorted(tree)))
     if isinstance(tree, (tuple, list)):
         return (type(tree).__name__, tuple(signature(t) for t in tree))
-    raise TypeError(f"a captured step takes tensors in dicts, tuples and lists; got "
-                    f"{type(tree).__name__}")
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return (type(tree).__name__, tuple((f.name, signature(getattr(tree, f.name)))
+                                           for f in dataclasses.fields(tree)))
+    raise TypeError(f"a captured step takes tensors in dicts, tuples, lists and dataclasses; "
+                    f"got {type(tree).__name__}")
 
 
 def kernel_nodes(dot: str) -> list[str]:

@@ -3,10 +3,26 @@
 Deterministic end to end: data is a pure function of the step counter
 (see ``repro_torch.data``), so a restart from a checkpoint reproduces the
 run's loss curve (bit for bit on the CPU; on CUDA the backward of the
-embedding gather accumulates with atomics, in no fixed order).  The step
-runs eagerly: the counterpart of the JAX package's ``TrainLoop(jit=True,
-donate=True)``, a CUDA graph of the step as serving has for its steps
-(``serve.graphs.CudaGraphStep``), is still to come.
+embedding gather accumulates with atomics, in no fixed order).
+
+``TrainLoop(..., jit=True, donate=True)`` takes the JAX package's
+keywords and defaults.  On a CUDA model ``jit=True`` captures the whole
+step (forward, checkpoint recompute, backward, error feedback, clip,
+update, step counter) as one CUDA graph for each batch signature
+(``serve.graphs.CudaGraphStep``, the port's ``jax.jit``): the first step
+of a signature runs eagerly as the warm-up, then captures, so its
+``step_time`` holds both, as the reference's first step holds its
+compilation; later steps replay the graph with no host dispatch.
+``donate=True`` makes the train state's leaves the graph's static inputs
+and writes the new state into them in place, inside the graph: the step
+returns the same leaves, updated, and one state stays alive across steps.
+``donate=False`` captures over clones of the state and never writes the
+caller's: the state it returns is the graph's output, which holds until
+the next replay.  On a CPU model, and with ``jit=False`` anywhere, every
+step runs eagerly and returns a new state (``donate`` changes nothing),
+as ``ServeEngine(jit=True)`` does.  There is no fallback: a warm-up,
+capture or replay that fails raises (a host read in the step, such as
+``.item()``, makes the capture fail), and nothing is retried eagerly.
 """
 
 from __future__ import annotations
@@ -18,9 +34,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._tree import tree_map
+from .._tree import leaves, tree_map
 from ..ckpt.checkpoint import CheckpointManager
 from ..ft.straggler import StragglerDetector
+from ..serve.graphs import CudaGraphStep
 
 from .step import TrainState, init_train_state, make_train_step
 
@@ -39,9 +56,23 @@ class TrainLoopConfig:
     predicted_step_time: float = 0.0  # straggler baseline (0 = off)
 
 
+def _in_place(step_fn: Callable) -> Callable:
+    """``step_fn`` writing the new state into the given state's leaves, in
+    place (the donated step's write-back): it returns the given state."""
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        new, metrics = step_fn(state, batch)
+        torch._foreach_copy_(leaves(state), leaves(new))
+        return state, metrics
+
+    return step
+
+
 class TrainLoop:
     """Runs ``make_train_step`` over ``batch_fn(step)``'s numpy batches on
-    the model's device."""
+    the model's device; on a CUDA model and under ``jit`` (the default)
+    as a CUDA graph of the step, over the donated state under ``donate``
+    (see the module's docstring)."""
 
     def __init__(
         self,
@@ -49,17 +80,26 @@ class TrainLoop:
         optimizer,
         batch_fn: Callable[[int], dict],
         config: TrainLoopConfig,
+        *,
+        jit: bool = True,
+        donate: bool = True,
     ) -> None:
         self.model = model
         self.optimizer = optimizer
         self.batch_fn = batch_fn
         self.config = config
-        self.step_fn = make_train_step(
+        step = make_train_step(
             model,
             optimizer,
             microbatch=config.microbatch,
             compress_grads=config.compress_grads,
         )
+        if jit and model.device.type == "cuda":
+            if donate:
+                step = CudaGraphStep(_in_place(step), model.device, donate=(0,))
+            else:
+                step = CudaGraphStep(step, model.device)
+        self.step_fn = step
         self.ckpt = (
             CheckpointManager(config.ckpt_dir, keep=config.keep)
             if config.ckpt_dir

@@ -1,12 +1,20 @@
 """Train-step factory: loss -> grads -> (optionally compressed) update.
 
 The produced step is a function ``(state, batch) -> (state, metrics)``
-that returns a new state and mutates none, run eagerly: the gradient is
-``torch.autograd.grad`` of ``Model.loss`` over the float32 leaves of
-``state.params`` (the master weights; the model computes in
+that returns a new state and mutates none, as the JAX package's is pure:
+the gradient is ``torch.autograd.grad`` of ``Model.loss`` over the float32
+leaves of ``state.params`` (the master weights; the model computes in
 ``cfg.dtype``).  The model's ``ExecConfig`` must take the differentiable
 route, ``attn_impl="xla"``: the hand-written kernels have no backward and
 raise on inputs that require grad.
+
+Called directly, the step runs eagerly.  ``TrainLoop(jit=True)`` (the
+default) captures it on a CUDA model as one CUDA graph a batch signature,
+and under ``donate=True`` wraps it to write the new state into the given
+one in place; on a CPU model, or with ``jit=False``, the loop runs it as
+it is.  Nothing in the step reads the card from the host (the schedule
+and the bias corrections read ``state.step`` on the device, the clip and
+the norm stay tensors), which is what lets it be captured.
 
 Features:
 * microbatch gradient accumulation (a loop over the split batch),
