@@ -157,15 +157,22 @@ Phases (each raises on failure, so any failure exits non-zero):
     relative of the captured run's (bitwise reported), its ms a step and
     peak beside the captured ones; (c) 10 captured steps, a checkpoint and
     a fresh captured loop resumed to 20 against 20 straight captured steps
-    at seq 1024, batch 4, params within 1e-2 (bitwise reported, not
-    required: the card's embedding backward may accumulate in any order);
+    at seq 1024, batch 4, params bitwise equal (every sum of the step's
+    backward has a fixed order on the card: the embedding's and the MoE
+    slots' go through ``index_put_(accumulate=True)``, which sorts);
     (d) at the params of (b)'s step 30 (cloned before the traced replay,
     which moves the donated state on), the
     loss under no_grad on ``attn_impl="pallas"`` launches kernel 3 once a
     layer (30, on the tensor cores) and agrees with the "xla" route's
     within 2e-2, the train step on "pallas" raises the wrapper's error, and
     kernel 3 is timed at this shape (S = T = 4096) beside its plain version
-    and SDPA;
+    and SDPA; (e) moonshot-v1-16b-a3b at full width, 2 of its 48 layers,
+    bf16 on float32 masters, seq 256, batch 2, under ``moe_impl="vmap"``
+    and ``"batched"``: 4 captured steps, then two replays of that graph
+    from one state, and 2 captured steps, a checkpoint and a fresh captured
+    loop resumed to 4 against the straight run, each pair bitwise equal in
+    every leaf of the train state and every loss and grad norm (the largest
+    difference reported);
 15. (after phase 14) the dry-run and a 1-device mesh: (a) in processes of
     their own, started together (host only, no card), the reduced (4, 2)
     train cell of tests/test_dryrun_small.py for smollm-135m, mamba2-130m
@@ -349,7 +356,12 @@ TRAIN = dict(arch="smollm-135m", seq_len=4096, batch=8, steps=30, lr=1e-3, shape
 TRAIN_CHECK = dict(seq_len=256, batch=2, lr=1e-3, rel_tol=1e-3)  # (a): float32, card vs CPU
 TRAIN_JIT_REL_TOL = 1e-6  # (a): float32, the captured step vs the eager one on the card
 TRAIN_EAGER = dict(steps=8, rel_tol=1e-3)  # (b'): TrainLoop(jit=False) vs (b)'s first steps
-TRAIN_RESUME = dict(seq_len=1024, batch=4, steps=20, atol=1e-2)  # (c): resume at step 10
+TRAIN_RESUME = dict(seq_len=1024, batch=4, steps=20)  # (c): resume at step 10, bitwise
+# (e): moonshot-v1-16b-a3b at full width, 2 of its 48 layers (as phase 11
+# cuts it), bf16 on float32 masters, under both MoE layouts: 4 captured
+# steps, two replays of its graph from one state, and a resume at step 2
+TRAIN_DETERMINISM = dict(arch="moonshot-v1-16b-a3b", layers=2, seq_len=256, batch=2, steps=4,
+                         lr=1e-3)
 TRAIN_ROUTE_TOL = 2e-2  # (d): the bf16 tolerance of the reference kernel tests
 
 # phase 15: the dry-run's cells, traced on the host (one process each,
@@ -2581,9 +2593,8 @@ def phase_train_eager(device, trained: dict) -> dict:
 def phase_train_resume(device) -> dict:
     """(c) 10 captured steps, a checkpoint, and a fresh captured TrainLoop
     resumed to 20, against 20 captured steps straight through: params
-    within atol (bf16 compute: the embedding gather's backward accumulates
-    in no fixed order on the card, so bitwise equality is reported, not
-    required); each loop one capture, the other steps replays."""
+    bitwise equal (the largest difference reported); each loop one
+    capture, the other steps replays."""
     import tempfile
 
     import torch
@@ -2622,12 +2633,12 @@ def phase_train_resume(device) -> dict:
            "batch": TRAIN_RESUME["batch"], "steps": TRAIN_RESUME["steps"], "jit": True,
            "captures_replays": graphs,
            "resumed_at": resumed.history[0]["step"], "max_abs_param_diff": diff,
-           "bitwise": all(torch.equal(a, b) for a, b in pairs), "atol": TRAIN_RESUME["atol"],
+           "bitwise": all(torch.equal(a, b) for a, b in pairs),
            "loss_straight_vs_resumed_last": [straight.history[-1]["loss"],
                                              resumed.history[-1]["loss"]]}
     print("[train-resume] " + json.dumps(rec), flush=True)
-    if not diff <= TRAIN_RESUME["atol"]:
-        raise AssertionError(f"resume: params differ by {diff} (atol {TRAIN_RESUME['atol']})")
+    if not rec["bitwise"]:
+        raise AssertionError(f"resume: params not bitwise equal, differ by up to {diff}")
     del straight, first, resumed, state_a, state_b, pairs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2677,6 +2688,127 @@ def phase_train_route(device, trained: dict) -> dict:
     if not rel <= TRAIN_ROUTE_TOL:
         raise AssertionError(f"train route: pallas vs xla loss differ by {rel}")
     return rec
+
+
+def _state_diff(got, want) -> tuple[bool, float]:
+    """Two train states (and their losses and grad norms, appended), leaf
+    by leaf on ``got``'s device: bitwise equal, and the largest absolute
+    difference."""
+    import torch
+
+    from repro_torch._tree import leaves
+
+    same, worst = True, 0.0
+    for a, b in zip(leaves(got), leaves(want), strict=True):
+        b = torch.as_tensor(b).to(a.device)
+        same = same and a.dtype == b.dtype and torch.equal(a, b)
+        if a.numel():
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+    return same, worst
+
+
+def phase_train_determinism(device) -> dict:
+    """(e) moonshot-v1-16b-a3b at full width, cut to 2 layers, bf16 on
+    float32 masters, under both MoE layouts: 4 captured steps straight;
+    two replays of that loop's graph from one state (step 4's, copied back
+    into the graph's donated inputs before each); 2 captured steps, a
+    checkpoint and a fresh captured loop resumed to 4 against the straight
+    run.  Each pair bitwise equal in every leaf of the state and every loss
+    and grad norm; the largest difference reported."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import make_batch_fn
+    from repro_torch.models import ExecConfig, Model
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+    from repro_torch.serve.graphs import CudaGraphStep
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+
+    D = TRAIN_DETERMINISM
+    cfg = dataclasses.replace(get_arch(D["arch"]), n_layers=D["layers"])
+    S, B, n = D["seq_len"], D["batch"], D["steps"]
+    batch_fn = make_batch_fn(cfg, InputShape("chip", S, B, "train"))
+    out = {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "master_dtype": "float32", "seq_len": S, "batch": B}
+    for impl in ("vmap", "batched"):
+        model = Model(cfg, ExecConfig(attn_impl="xla", remat=cfg.remat, moe_impl=impl),
+                      params={}, device=device)
+        opt = AdamW(linear_warmup_cosine(D["lr"], 1, n))
+
+        def loop(steps: int, ckpt_dir: str = "") -> TrainLoop:
+            lp = TrainLoop(model, opt, batch_fn, TrainLoopConfig(
+                total_steps=steps, ckpt_every=0, log_every=0, ckpt_dir=ckpt_dir), jit=True)
+            if not isinstance(lp.step_fn, CudaGraphStep):
+                raise AssertionError(f"train determinism: the loop's step is {lp.step_fn}")
+            return lp
+
+        def metrics(lp, steps) -> list:
+            return [torch.tensor([h["loss"], h["grad_norm"]], dtype=torch.float64)
+                    for h in lp.history if h["step"] in steps]
+
+        def on(raw: dict) -> dict:
+            return {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+                    for k, v in raw.items()}
+
+        straight = loop(n)
+        state = straight.run(torch.Generator(device).manual_seed(3))
+        # step n's state, on the host (the card holds the state and the
+        # graph's pool, and no third copy): the replays below start from it
+        # and the resume ends at it
+        kept = tree_map(lambda t: t.cpu(), state)
+        batch = on(batch_fn(n))
+        runs = []
+        for _ in range(2):
+            torch._foreach_copy_(leaves(state), leaves(kept))  # the graph's donated inputs
+            r, m = straight.step_fn(state, batch)  # a replay, in place
+            tail = [torch.tensor([float(m["loss"]), float(m["grad_norm"])], dtype=torch.float64)]
+            runs.append((r, tail) if runs else (tree_map(lambda t: t.cpu(), r), tail))
+        replays_same, replays_diff = _state_diff(runs[1], runs[0])
+        graphs = [len(straight.step_fn.captures),
+                  *(e.replays for e in straight.step_fn.graphs.values())]
+        want_metrics = metrics(straight, range(n // 2, n))
+        del straight, state, r, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as ck:
+            head = loop(n // 2, ck)
+            head.run(torch.Generator(device).manual_seed(3))
+            del head
+            gc.collect()
+            torch.cuda.empty_cache()
+            resumed = loop(n, ck)
+            state_b = resumed.run(torch.Generator(device).manual_seed(99))
+        if int(resumed.history[0]["step"]) != n // 2:
+            raise AssertionError(f"train determinism: resumed at {resumed.history[0]['step']}")
+        resume_same, resume_diff = _state_diff(
+            (state_b, metrics(resumed, range(n // 2, n))), (kept, want_metrics))
+        out[impl] = {"captures_replays": graphs,
+                     "resumed_captures_replays": [len(resumed.step_fn.captures),
+                                                  *(e.replays for e in
+                                                    resumed.step_fn.graphs.values())],
+                     "replays_bitwise": replays_same, "replays_max_abs_diff": replays_diff,
+                     "resume_bitwise": resume_same, "resume_max_abs_diff": resume_diff,
+                     "losses": [float(m[0]) for m in want_metrics]}
+        del resumed, state_b, kept, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[train-determinism] " + json.dumps(out), flush=True)
+    for impl in ("vmap", "batched"):
+        r = out[impl]
+        if not (r["replays_bitwise"] and r["resume_bitwise"]):
+            raise AssertionError(f"train determinism ({impl}): replays bitwise "
+                                 f"{r['replays_bitwise']} (up to {r['replays_max_abs_diff']}), "
+                                 f"resume bitwise {r['resume_bitwise']} "
+                                 f"(up to {r['resume_max_abs_diff']})")
+        if r["captures_replays"] != [1, n + 1] or r["resumed_captures_replays"] != [1, n // 2 - 1]:
+            raise AssertionError(f"train determinism ({impl}): [captures, replays] "
+                                 f"{r['captures_replays']}, {r['resumed_captures_replays']}")
+    return out
 
 
 def _dryrun_job(job: tuple) -> dict:
@@ -3031,6 +3163,10 @@ def main() -> int:
     train_eager = phase_train_eager(device, trained)
     train_resume = phase_train_resume(device)
     train_route = phase_train_route(device, trained)
+    del trained["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_determinism = phase_train_determinism(device)
     print("[train-summary] " + json.dumps({
         "card": card, "ms_per_step": trained["rec"]["ms_per_step_median_4_30"],
         "ms_per_step_eager": train_eager["ms_per_step_median_4_8"],
@@ -3052,6 +3188,10 @@ def main() -> int:
         "eager_vs_captured_bf16": [train_eager["rel_diff_vs_captured"],
                                    train_eager["bitwise_vs_captured"]],
         "resume_max_abs_diff": train_resume["max_abs_param_diff"],
+        "resume_bitwise": train_resume["bitwise"],
+        "moonshot_2_layers_bitwise": {
+            impl: [train_determinism[impl]["replays_bitwise"],
+                   train_determinism[impl]["resume_bitwise"]] for impl in ("vmap", "batched")},
         "route_launches": train_route["pallas_route_launches"]["flash_attention"]}), flush=True)
 
     # phase 15: the dry-run (host traces) and a 1-device mesh on the card

@@ -2,11 +2,11 @@
 """One dry-run cell's per-device counts, broken down by aten op.
 
     python3 experiments/dryrun_by_op.py --arch smollm-135m --shape train_4k \
-        [--mesh single|multi] [--moe-impl vmap|batched] [--layers N] \
-        [--sites] [--out FILE.json] [--against OTHER.json]
+        [--mesh single|multi] [--rules PRESET] [--moe-impl vmap|batched] \
+        [--layers N] [--sites] [--out FILE.json] [--against OTHER.json]
 
 Traces the cell as ``repro_torch.launch.dryrun`` does (full width, the
-shape's default rules, ``meta`` shards in a fake 512-rank world; no card)
+shape's default rules or ``--rules``, ``meta`` shards in a fake 512-rank world; no card)
 under ``ByOpMode``, the dry-run's cost counter with a breakdown, and
 writes the torch version, the totals (FLOPs, dot FLOPs, bytes, collective
 bytes and counts by op, argument bytes, peak live bytes, trace seconds)
@@ -137,13 +137,14 @@ class ByOpMode(CostMode):
 
 
 def trace(arch: str, shape_name: str, mesh_name: str, moe_impl: str, layers: int | None,
-          sites: bool = False) -> dict:
+          sites: bool = False, rules_name: str = "auto") -> dict:
     """The cell traced as ``dryrun.trace_cell`` traces it, under ``ByOpMode``."""
     cfg = get_arch(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = get_shape(shape_name)
-    rules_name = dryrun.default_rules(shape.kind)
+    if rules_name == "auto":
+        rules_name = dryrun.default_rules(shape.kind)
     mesh_shape, axes = MULTI_POD if mesh_name == "multi" else SINGLE_POD
     ex = ExecConfig(remat=cfg.remat, attn_impl="xla", moe_impl=moe_impl)
     rules = PRESETS[rules_name]
@@ -183,6 +184,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--rules", default="auto", choices=["auto", *PRESETS],
+                    help="the sharding preset (auto: the shape's default)")
     ap.add_argument("--moe-impl", default="vmap", choices=["vmap", "batched"])
     ap.add_argument("--layers", type=int, default=0, help="cut the depth to this many layers")
     ap.add_argument("--sites", action="store_true", help="key ops by their call sites too")
@@ -193,7 +196,7 @@ def main(argv=None) -> int:
         # forward tracebacks on the autograd nodes, for the backward's sites
         torch.autograd.set_detect_anomaly(True, check_nan=False)
     rec = trace(args.arch, args.shape, args.mesh, args.moe_impl, args.layers or None,
-                args.sites)
+                args.sites, args.rules)
     if args.against:
         other = json.loads(Path(args.against).read_text())
         rec["against"] = {k: other[k] for k in ("torch", "moe_impl", "layers")}

@@ -322,14 +322,35 @@ def _slots(x, e_s, pos, keep, w_s, order, *, lo: int, hi: int, n_experts: int, t
     each row's pairs kept there in their slots, the rest written (as
     zeros) to the sacrificial last slot."""
     B, _, D = x.shape
-    SK = e_s.shape[1]
     mine, e_mine = _mine(e_s, keep, lo, hi, n_experts)
     pos_c = torch.where(mine, pos, capacity)
     b_idx = torch.arange(B, device=x.device)[:, None]
-    x_sorted = torch.gather(x, 1, (order // top_k)[..., None].expand(B, SK, D))
+    x_sorted = _TokenRows.apply(x, order // top_k)
     buf = torch.zeros((B, hi - lo, capacity + 1, D), dtype=x.dtype, device=x.device)
     buf[b_idx, e_mine, pos_c] = x_sorted * mine[..., None].to(x.dtype)
     return (buf,)
+
+
+class _TokenRows(torch.autograd.Function):
+    """``x[b, t[b, p]]``: each pair's token row, read by ``torch.gather``.
+    A token is read ``top_k`` times, so its gradient sums ``top_k`` rows:
+    ``gather``'s own backward adds them with atomics, in whatever order
+    they land on the card, and a restart would not repeat the run bit for
+    bit.  This backward adds them through ``index_put_(accumulate=True)``
+    (an index's backward), whose CUDA kernel sorts the indices and sums
+    each token's rows in one order."""
+
+    @staticmethod
+    def forward(ctx, x, t):
+        ctx.save_for_backward(t)
+        ctx.x_shape = x.shape
+        return torch.gather(x, 1, t[..., None].expand(*t.shape, x.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (t,) = ctx.saved_tensors
+        b = torch.arange(t.shape[0], device=t.device)[:, None].expand_as(t)
+        return grad.new_zeros(ctx.x_shape).index_put_((b, t), grad, accumulate=True), None
 
 
 def _combine(e_s, pos, keep, w_s, order, y, *, lo: int, hi: int, n_experts: int, top_k: int):
@@ -353,7 +374,7 @@ def moe_aux_loss(probs: torch.Tensor, top_k: int) -> torch.Tensor:
     the fractions from the top-k hard assignment.
     """
     E = probs.shape[-1]
-    flat = probs.reshape(-1, E)
+    flat = reshape(probs, probs.numel() // E, E)
     (hard,) = rowwise(_hard_top_k, (flat,), top_k=top_k)
     frac = mean(hard, 0) / top_k
     mean_prob = mean(flat, 0)

@@ -384,6 +384,12 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None, devi
     return (torch.zeros(shape, dtype=dt, device=device), torch.zeros(shape, dtype=dt, device=device))
 
 
+def abstract_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None):
+    """``init_cache``'s (k, v) shapes and dtypes, as tensors on the ``meta``
+    device (the JAX package's ``ShapeDtypeStruct``s): nothing allocated."""
+    return init_cache(cfg, batch_size, max_len, dtype, device=torch.device("meta"))
+
+
 def lm_decode_step(
     cfg: ModelConfig,
     ex: ExecConfig,

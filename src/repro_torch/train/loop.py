@@ -1,9 +1,11 @@
 """Training loop: checkpoint auto-resume, async saves, health hooks.
 
 Deterministic end to end: data is a pure function of the step counter
-(see ``repro_torch.data``), so a restart from a checkpoint reproduces the
-run's loss curve (bit for bit on the CPU; on CUDA the backward of the
-embedding gather accumulates with atomics, in no fixed order).
+(see ``repro_torch.data``), and every sum of the step has a fixed order, on
+the CPU and on the card (the embedding's and the MoE slots' backward go
+through ``index_put_(accumulate=True)``, which sorts its indices on CUDA;
+the loss's gather adds into each slot once), so a restart from a
+checkpoint reproduces the run's loss curve bit for bit.
 
 ``TrainLoop(..., jit=True, donate=True)`` takes the JAX package's
 keywords and defaults.  On a CUDA model ``jit=True`` captures the whole

@@ -293,3 +293,61 @@ def test_griffin_decode_cell_traces_on_the_multi_pod_axes(monkeypatch):
     monkeypatch.setattr(rglru, "_block_diag", _bias_on_the_partial_sum)
     assert got == trace()
     assert got[3]["reduce-scatter"] > 0
+
+
+@pytest.mark.parametrize("impl", ["vmap", "batched"])
+def test_moe_rows_are_gathered_whole_when_the_sequence_is_on_the_experts_axis(impl,
+                                                                              monkeypatch):
+    """sp_serve puts a prefill's sequence on 'model', the experts' axis.
+    The routing (``rowwise``) and, under "batched", the slot fill
+    (``expertwise``) then each gather x's rows whole: an all-gather of x's
+    local shard, no all-to-all.  An all-to-all cannot take its place
+    exactly: a row's pairs go to experts by data-dependent counts, and the
+    reference routes each row whole with one capacity.  The load-balance
+    loss reshapes the sequence-split router probabilities
+    (``ctx.reshape``: DTensor cannot merge a split non-leading dim)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding import activation_sharding
+    from repro_torch.sharding.rules import placements, resolve_spec
+
+    B, S, D, E, F, k = 4, 32, 16, 8, 24, 2
+    seen = {}
+
+    def spy(name, real):
+        def run(fn, *args, **kwargs):
+            before = dict(costs.coll_bytes)
+            out = real(fn, *args, **kwargs)
+            seen.setdefault((name, fn.__name__), []).append(
+                {op: costs.coll_bytes[op] - before[op] for op in before})
+            return out
+        return run
+
+    monkeypatch.setattr(layers, "rowwise", spy("rowwise", layers.rowwise))
+    monkeypatch.setattr(layers, "expertwise", spy("expertwise", layers.expertwise))
+    with fake_world(8):
+        mesh = make_mesh((2, 4), ("data", "model"))
+        rules = PRESETS["sp_serve"]
+
+        def put(shape, axes):
+            pl = placements(resolve_spec(axes, shape, mesh, rules), mesh)
+            local = [n // math.prod(mesh.shape[j] for j, p in enumerate(pl) if p.is_shard(d))
+                     for d, n in enumerate(shape)]
+            return DTensor.from_local(torch.empty(local, device="meta"), mesh, pl,
+                                      run_check=False)
+
+        x = put((B, S, D), ("batch", "seq", None))
+        ws = [put((D, E), ("embed", None)), put((E, D, F), ("expert", "embed", None)),
+              put((E, D, F), ("expert", "embed", None)), put((E, F, D), ("expert", None, "embed"))]
+        with activation_sharding(mesh, rules), count_costs() as costs:
+            out, probs = layers.moe_layer(x, *ws, top_k=k, capacity_factor=1.25, impl=impl)
+            layers.moe_aux_loss(probs, k)
+    x_local = B // 2 * S // 4 * D * 4
+    router_local = D // 2 * E * 4
+    assert tuple(out.shape) == (B, S, D) and out.placements == x.placements
+    route = seen[("rowwise", "_route" if impl == "batched" else "_dispatch")]
+    assert route == [{**dict.fromkeys(route[0], 0), "all-gather": x_local + router_local}]
+    if impl == "batched":
+        assert seen[("expertwise", "_slots")] == [
+            {**dict.fromkeys(route[0], 0), "all-gather": x_local}]
+    assert costs.coll_bytes["all-to-all"] == 0
