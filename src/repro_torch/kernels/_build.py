@@ -21,9 +21,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
+
+from .. import trace
 
 __all__ = [
     "MAX_SMEM", "NVCC_FLAGS", "build_dir", "build_log", "check_cuda", "flags", "launch",
@@ -107,7 +110,11 @@ def _build(name: str) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    # which kernel this process built from source, not found in the cache
+    trace.count(f"kernels.builds.{name}")
+    trace.count("kernels.build_s", time.perf_counter() - t0)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {name}.cu:\n"

@@ -5,7 +5,13 @@
 
 The flags are the JAX package's ``launch/serve.py``'s, plus ``--device``:
 ``cuda`` (the default) runs the kernels on the card and raises without
-one; ``cpu`` runs their plain versions.  Every registered ``--arch`` is
+one; ``cpu`` runs their plain versions; ``--eos-id``: a row stops at this
+token (the engine's stop check, which reads the card once a step); and
+``--trace``: a second ``generate`` of the same batch with the program's
+tracing on (``repro_torch.trace``), after which the launcher prints the
+counters (``trace.snapshot()``) and each span's ms a step
+(``trace.spans()``: the device's on a card, the host's clock on the CPU;
+``serve.stop`` is the stop check's).  Every registered ``--arch`` is
 served at its reduced width.  The stub frontends get the JAX package's
 inputs: an enc-dec model ``prompt-len`` random frame embeddings, a vision
 model 8 random patch embeddings in place of its first 8 prompt tokens.
@@ -19,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from ..configs import get_arch, list_archs
 from ..models import Model
 from ..models.model import resolve_device
@@ -36,6 +43,10 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="stop a row at this token (-1, the default: never)")
+    ap.add_argument("--trace", action="store_true",
+                    help="generate again with tracing on; print its spans and counters")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch).reduced()
@@ -56,7 +67,8 @@ def main(argv=None) -> int:
         }
 
     engine = ServeEngine(
-        model, ServeConfig(max_len=S + args.new_tokens, temperature=args.temperature)
+        model, ServeConfig(max_len=S + args.new_tokens, temperature=args.temperature,
+                           eos_id=args.eos_id)
     )
     t0 = time.perf_counter()
     out = engine.generate(
@@ -68,6 +80,13 @@ def main(argv=None) -> int:
     tput = B * out.shape[1] / dt
     print(f"generated {tuple(out.shape)} tokens in {dt:.2f}s ({tput:.1f} tok/s) on {model.device}")
     print("first row:", out[0][:16].cpu().numpy())
+    if args.trace:
+        with trace.enabled():
+            engine.generate(batch, args.new_tokens,
+                            generator=torch.Generator(model.device).manual_seed(args.seed))
+        print("counters:", " ".join(f"{k}={v:g}" for k, v in sorted(trace.snapshot().items())))
+        for name, ms in sorted(trace.spans().items()):
+            print(f"span {name}: {sum(ms) / len(ms):.3f} ms a step over {len(ms)}")
     return 0
 
 

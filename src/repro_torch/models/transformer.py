@@ -11,6 +11,14 @@ torch on any device, which training takes.  Decode runs
 precomputed patch embeddings as a prefix of the token embeddings (the
 vision frontend is a stub, as in the JAX package) and 3-D (t, h, w)
 positions for M-RoPE.
+
+Each block's work is named by ``trace`` spans, timed on the device with
+tracing on (and nothing without): ``attn.qkv`` (``ln1``, the q/k/v
+products and biases, RoPE or M-RoPE), ``attn.core`` (the cache write and
+the attention), ``attn.out`` (the output product and the residual) and
+``mlp`` (``ln2``, the MLP or MoE layer and the residual); once a step
+``embed`` (the embeddings, a vision batch's patch prefix, the positions)
+and ``head`` (the final norm and the head product).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..sharding.ctx import (
@@ -222,12 +231,8 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cache_idx):
-    """Shared attention path.  Returns (attn_out, (k, v)).
-
-    With a cache (one layer's ``(B, T, K, hd)`` pair), the step's k and v
-    are written into it in place at ``cache_idx`` and it is returned.
-    """
+def _qkv(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cached: bool):
+    """The attention's q, k and v of ``hn``, biased, sharded and rotated."""
     dt = hn.dtype
     q = einsum("bsd,dhk->bshk", hn, p["wq"].to(dt))
     k = einsum("bsd,dhk->bshk", hn, p["wk"].to(dt))
@@ -243,7 +248,7 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
     cp = ex.cp_attention == "on" or (
         ex.cp_attention == "auto"
         and tp is not None
-        and cache is None  # full-sequence paths only
+        and not cached  # full-sequence paths only
         and cfg.n_heads % tp != 0
     )
     q = shard(q, "batch", "act_seq" if cp else "seq", "heads", None)
@@ -255,17 +260,21 @@ def _attention(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cache, cac
     elif cfg.rope == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    return q, k, v
 
+
+def _attend(ex: ExecConfig, q, k, v, *, cache, cache_idx):
+    """Attention of the step's q, k and v.  Returns (out, (k, v)).
+
+    With a cache (one layer's ``(B, T, K, hd)`` pair), the step's k and v
+    are written into it in place at ``cache_idx`` and it is returned.
+    """
     if cache is None:
-        out = _attn_dispatch(ex, q, k, v, causal=True, window=0)
-        new_cache = (k, v)  # prefill fills the cache
-    else:
-        ck, cv = cache
-        write_slice(ck, k.to(ck.dtype), cache_idx)
-        write_slice(cv, v.to(cv.dtype), cache_idx)
-        out = _cached_attention(ex, q, ck, cv, cache_idx)
-        new_cache = (ck, cv)
-    return einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), new_cache
+        return _attn_dispatch(ex, q, k, v, causal=True, window=0), (k, v)  # prefill fills it
+    ck, cv = cache
+    write_slice(ck, k.to(ck.dtype), cache_idx)
+    write_slice(cv, v.to(cv.dtype), cache_idx)
+    return _cached_attention(ex, q, ck, cv, cache_idx), (ck, cv)
 
 
 def _attn_dispatch(ex: ExecConfig, q, k, v, *, causal: bool, window: int) -> torch.Tensor:
@@ -298,22 +307,33 @@ def _cached_attention(ex: ExecConfig, q, ck, cv, cache_idx) -> torch.Tensor:
 
 def _block_apply(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, cache_idx):
     """One block.  Returns (h, router probs or None, cache)."""
-    h = shard(h, "batch", "act_seq", None)
-    hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-    attn_out, new_cache = _attention(cfg, ex, p["attn"], hn, pos, cache=cache, cache_idx=cache_idx)
-    h = h + attn_out
-    h = shard(h, "batch", "act_seq", None)
-    hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-    probs = None
-    if cfg.family == "moe":
-        m = p["moe"]
-        y, probs = moe_layer(hn2, m["router"], m["w_gate"], m["w_up"], m["w_down"],
-                             top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity,
-                             impl=ex.moe_impl)
-    else:
-        m = p["mlp"]
-        y = swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
-    return shard(h + y, "batch", "act_seq", None), probs, new_cache
+    dev = h.device
+    with trace.span("attn.qkv", dev) as part:
+        h = shard(h, "batch", "act_seq", None)
+        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, ex, p["attn"], hn, pos, cached=cache is not None)
+    with trace.span("attn.core", dev, after=part) as part:
+        out, new_cache = _attend(ex, q, k, v, cache=cache, cache_idx=cache_idx)
+    with trace.span("attn.out", dev, after=part) as part:
+        attn_out = einsum("bshk,hkd->bsd", out, p["attn"]["wo"].to(hn.dtype))
+        # freed here, as the attention's own temporaries were: a captured
+        # prefill's pool holds the same blocks with tracing on or off
+        del q, k, v, out
+        h = h + attn_out
+    with trace.span("mlp", dev, after=part):
+        h = shard(h, "batch", "act_seq", None)
+        hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
+        probs = None
+        if cfg.family == "moe":
+            m = p["moe"]
+            y, probs = moe_layer(hn2, m["router"], m["w_gate"], m["w_up"], m["w_down"],
+                                 top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity,
+                                 impl=ex.moe_impl)
+        else:
+            m = p["mlp"]
+            y = swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
+        h = shard(h + y, "batch", "act_seq", None)
+    return h, probs, new_cache
 
 
 def _logits(cfg: ModelConfig, params: dict, h) -> torch.Tensor:
@@ -359,7 +379,8 @@ def lm_forward(
     aux_loss the float32 sum of the MoE layers' load-balance losses (0
     without MoE).
     """
-    h, pos = _embed_inputs(cfg, params, batch)
+    with trace.span("embed", batch["tokens"].device):
+        h, pos = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
     block = ex.remat_wrap(_block_apply)
@@ -371,7 +392,8 @@ def lm_forward(
         if return_cache:
             ks.append(k)
             vs.append(v)
-    logits = _logits(cfg, params, h)
+    with trace.span("head", h.device):
+        logits = _logits(cfg, params, h)
     if return_cache:
         return logits, aux, (torch.stack(ks), torch.stack(vs))
     return logits, aux
@@ -402,11 +424,13 @@ def lm_decode_step(
     integer tensor on the cache's device, read there alone) of every
     layer's cache, in place, and return (logits, cache)."""
     B = tokens.shape[0]
-    h = _embed(cfg, params, tokens[:, None])  # (B,1,D)
-    shape = (B, 1, 3) if cfg.rope == "mrope" else (B, 1)  # M-RoPE: t = h = w = idx
-    pos = decode_positions(idx, shape, h.device)
+    with trace.span("embed", tokens.device):
+        h = _embed(cfg, params, tokens[:, None])  # (B,1,D)
+        shape = (B, 1, 3) if cfg.rope == "mrope" else (B, 1)  # M-RoPE: t = h = w = idx
+        pos = decode_positions(idx, shape, h.device)
     for i in range(cfg.n_layers):
         h, _, _ = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
                             cache=(cache[0][i], cache[1][i]), cache_idx=idx)
-    logits = _logits(cfg, params, h)[:, 0]
+    with trace.span("head", h.device):
+        logits = _logits(cfg, params, h)[:, 0]
     return logits, cache

@@ -23,6 +23,13 @@ Greedy decoding takes ``argmax`` (the first maximum, as ``jnp.argmax``
 does), so it gives the JAX package's tokens from the same weights.
 ``temperature > 0`` samples from a ``torch.Generator``; its bits differ
 from ``jax.random.categorical``'s.  Sampling runs outside the graphs.
+
+The engine's work is named by ``trace`` spans: ``serve.generate`` (the
+whole call), ``serve.prefill`` (the batch to the device, the prefill and
+its logits' copy), ``serve.decode`` (one a step: the position, the step
+and its logits' copy), ``serve.sample`` and ``serve.stop`` (the EOS check
+and its host read).  Each is a step of the trace, timed on the device with
+tracing on, and a ``record_function`` range under a profiler.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from .._tree import leaves, unflatten
 from ..models.model import Model
 from .graphs import CudaGraphStep
@@ -149,16 +157,19 @@ class ServeEngine:
         self._prefill, self._decode = prefill_step, decode
         if self._captured:
             pool = torch.cuda.graph_pool_handle()
-            self._prefill = CudaGraphStep(prefill_step, self.device, pool=pool)
+            spans = family in ("dense", "moe", "vlm")  # the model's blocks hold device spans
+            self._prefill = CudaGraphStep(prefill_step, self.device, pool=pool, spans=spans)
             # the state and the position are the graph's own buffers (donated)
-            self._decode = CudaGraphStep(decode, self.device, pool=pool, donate=(0, 2))
+            self._decode = CudaGraphStep(decode, self.device, pool=pool, donate=(0, 2),
+                                         spans=spans)
             self._idx = torch.zeros((), dtype=torch.int32, device=self.device)
 
     def _sample(self, logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        if self.config.temperature <= 0:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        probs = torch.softmax(logits.float() / self.config.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+        with trace.span("serve.sample", self.device, outer=True):
+            if self.config.temperature <= 0:
+                return torch.argmax(logits, dim=-1).to(torch.int32)
+            probs = torch.softmax(logits.float() / self.config.temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
     def _on_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
@@ -168,8 +179,9 @@ class ServeEngine:
         grown to ``max_len`` positions (the prompt's, then zeros).  Under
         capture the state is the engine's buffer for these shapes: the next
         prefill of the same batch size overwrites it."""
-        last, state = self._prefill(self._on_device(batch))
-        return (last.clone() if self._captured else last), state
+        with trace.span("serve.prefill", self.device, outer=True):
+            last, state = self._prefill(self._on_device(batch))
+            return (last.clone() if self._captured else last), state
 
     def decode(self, state: Any, tokens: torch.Tensor,
                idx: int | torch.Tensor) -> tuple[torch.Tensor, Any]:
@@ -184,14 +196,15 @@ class ServeEngine:
         if not isinstance(idx, torch.Tensor) and caches and not 0 <= idx < caches[0].shape[2]:
             raise IndexError(f"decode position {idx} is outside the KV cache's "
                              f"{caches[0].shape[2]} positions")
-        if not self._captured:
-            return self._decode(state, tokens, idx)
-        if isinstance(idx, torch.Tensor):
-            self._idx.copy_(idx)
-        else:
-            self._idx.fill_(idx)  # a fill on the card, no sync
-        logits, state = self._decode(state, tokens, self._idx)
-        return logits.clone(), state
+        with trace.span("serve.decode", self.device, outer=True):
+            if not self._captured:
+                return self._decode(state, tokens, idx)
+            if isinstance(idx, torch.Tensor):
+                self._idx.copy_(idx)
+            else:
+                self._idx.fill_(idx)  # a fill on the card, no sync
+            logits, state = self._decode(state, tokens, self._idx)
+            return logits.clone(), state
 
     def generate(
         self,
@@ -207,6 +220,11 @@ class ServeEngine:
         seeded 0 if none is given.  With ``eos_id`` set, the stop check
         reads the card once a step (``bool(done.all())``), as the JAX
         package's does."""
+        with trace.span("serve.generate", self.device, outer=True):
+            return self._generate(batch, max_new_tokens, generator)
+
+    def _generate(self, batch: dict, max_new_tokens: int,
+                  generator: torch.Generator | None) -> torch.Tensor:
         batch = self._on_device(batch)
         gen = generator or torch.Generator(self.device).manual_seed(0)
         prompt_len = batch["tokens"].shape[1]
@@ -227,8 +245,10 @@ class ServeEngine:
             logits, state = self.decode(state, tokens, prompt_len + t - 1)
             tokens = self._sample(logits, gen)
             if self.config.eos_id >= 0:
-                done = done | (tokens == self.config.eos_id)
-                if bool(done.all()):
+                with trace.span("serve.stop", self.device, outer=True):
+                    done = done | (tokens == self.config.eos_id)
+                    stop = bool(done.all())
+                if stop:
                     out.append(tokens)
                     break
             out.append(tokens)

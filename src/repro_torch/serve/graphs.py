@@ -1,7 +1,7 @@
 """A serving or training step captured as CUDA graphs: the port's counterpart of
 ``jax.jit``.
 
-``CudaGraphStep(fn, device, pool=, donate=)`` wraps a step ``fn(*args)``
+``CudaGraphStep(fn, device, pool=, donate=, spans=)`` wraps a step ``fn(*args)``
 whose arguments and results are tensors in nested dicts, tuples, lists and
 dataclasses (``None`` an empty subtree, as in ``_tree``).
 Like ``jax.jit``, which compiles a program for each abstract signature, it
@@ -33,6 +33,23 @@ every replay launches once each, and ``launches(key)`` the wrappers'
 launches they stand for (``kernels.counts.seen``); ``replayed`` tallies
 them over the replays made.
 
+A step whose ``fn`` holds device spans (``spans=True``: the serving
+engine's steps of the transformer families) is traced.  With tracing on
+(``trace.enabled()``) its signature is captured again, as
+two graphs of its own in the same pool, replayed in turns: the spans
+inside ``fn`` become each graph's timing-event nodes (``trace.capturing``),
+and each replay hands them to ``trace.replayed``.  A graph's events are
+read just before it replays again, so the host waits for the replay
+before last, never for the one it just launched, and the card does not
+stand still for the reading.  A capture of a signature already captured
+(untraced, or the first of the two) runs no second eager warm-up (the
+lazy state is filled, and a warm-up's temporaries would lie outside the
+pool); it reuses that graph's static inputs, and this call's result is
+the new graph's first replay.  The untraced graphs stay as they are, for
+when tracing goes off again.  Any other step keeps one graph a signature,
+with tracing on or off, and a span inside its capture times nothing.  The
+host's time is named by ``graph.capture`` and ``graph.replay`` ranges.
+
 There is no fallback: a warm-up, capture or replay that fails raises (a
 host read inside ``fn``, such as ``.item()``, makes the capture fail), and
 nothing is retried eagerly.
@@ -51,6 +68,7 @@ from typing import Any, Callable
 
 import torch
 
+from .. import trace
 from .._tree import leaves, unflatten
 from ..kernels import counts
 
@@ -89,16 +107,18 @@ class _Graph:
     outputs: Any  # the static output tree
     replays: int = 0
     launches: dict | None = None  # one replay's, read from the graph on first use
+    events: list = dataclasses.field(default_factory=list)  # the spans' (``trace.capturing``)
 
 
 class CudaGraphStep:
     """``fn`` captured as a CUDA graph per argument signature (see the
-    module's docstring).  ``graphs`` holds the captures by signature,
-    ``captures`` a record of each (its signature and the ms of its first
-    call: warm-up and capture)."""
+    module's docstring).  ``graphs`` holds the captures by signature (the
+    traced ones' keys ``(signature, "traced", 0 or 1)``), ``captures`` a
+    record of each (its key and the ms of its first call: warm-up and
+    capture), which ``trace.snapshot`` reads."""
 
     def __init__(self, fn: Callable, device: torch.device, *, pool=None,
-                 donate: tuple[int, ...] = ()) -> None:
+                 donate: tuple[int, ...] = (), spans: bool = False) -> None:
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph captures work on a CUDA device, not {device}")
@@ -106,21 +126,37 @@ class CudaGraphStep:
         self.device = device
         self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
         self.donate = frozenset(donate)
+        self.spans = spans
         self.graphs: dict[tuple, _Graph] = {}
         self.captures: list[dict] = []
         self._stream = torch.cuda.Stream(device)
+        self._turns: dict[tuple, int] = {}  # traced calls by signature
+        trace.watch(self)
 
     def __call__(self, *args: Any) -> Any:
-        key = signature(args)
+        key = sig = signature(args)
+        if self.spans and trace.is_on():
+            turn = self._turns[sig] = self._turns.get(sig, -1) + 1
+            key = (sig, "traced", turn % 2)
         entry = self.graphs.get(key)
         if entry is None:
-            return self._capture(key, args)
+            base = next((self.graphs[k] for k in (sig, (sig, "traced", 0)) if k in self.graphs),
+                        None)
+            with trace.span("graph.capture", outer=True):
+                return self._capture(key, args, base)
+        with trace.span("graph.replay", outer=True):
+            self._replay(entry, args)
+        return entry.outputs
+
+    def _replay(self, entry: _Graph, args: tuple) -> None:
         for static, leaf in zip(entry.inputs, leaves(args), strict=True):
             if static is not leaf:
                 static.copy_(leaf)
+        if entry.events:
+            trace.flush(entry.events)  # its last replay's, before this one records over them
         entry.graph.replay()
         entry.replays += 1
-        return entry.outputs
+        trace.replayed(entry.events)
 
     def kernels(self, key: tuple) -> list[str]:
         """The kernel nodes of the graph captured for signature ``key``,
@@ -152,18 +188,27 @@ class CudaGraphStep:
                     out[name] = out.get(name, 0) + n * entry.replays
         return out
 
-    def _capture(self, key: tuple, args: tuple) -> Any:
+    def _capture(self, key: tuple, args: tuple, base: _Graph | None) -> Any:
+        """Warm up and capture ``key``'s graph; with a graph of the same
+        signature already captured (``base``), capture alone over its
+        static inputs, then replay."""
         t0 = time.perf_counter()
-        static = [leaf for i, arg in enumerate(args)
-                  for leaf in (leaves(arg) if i in self.donate else
-                               [t.clone() for t in leaves(arg)])]
+        warm = base is None
+        if warm:
+            static = [leaf for i, arg in enumerate(args)
+                      for leaf in (leaves(arg) if i in self.donate else
+                                   [t.clone() for t in leaves(arg)])]
+        else:
+            static = base.inputs  # this call's arguments go in at the replay
         static_args = unflatten(args, static)
+        events: list = []
         with torch.cuda.device(self.device):
             cur = torch.cuda.current_stream()
             self._stream.wait_stream(cur)
-            with torch.cuda.stream(self._stream):
-                out = self.fn(*args)  # the warm-up: this call's result
-            cur.wait_stream(self._stream)
+            if warm:
+                with torch.cuda.stream(self._stream):
+                    out = self.fn(*args)  # the warm-up: this call's result
+                cur.wait_stream(self._stream)
             graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for ``kernels``
             graph.enable_debug_mode()
             before = counts.read()
@@ -176,7 +221,8 @@ class CudaGraphStep:
             try:
                 # torch.cuda.graph synchronises and releases the warm-up's
                 # cached blocks before it begins
-                with torch.cuda.graph(graph, pool=self.pool, stream=self._stream):
+                with trace.capturing(events if self.spans else None), torch.cuda.graph(
+                        graph, pool=self.pool, stream=self._stream):
                     static_out = self.fn(*static_args)
             finally:
                 if gc_on:
@@ -184,6 +230,9 @@ class CudaGraphStep:
                 counts.add({name: -n for name, n in counts.delta(counts.read(), before).items()})
             graph.instantiate()
             torch.cuda.synchronize()
-        self.graphs[key] = _Graph(graph, static, static_out)
+        entry = self.graphs[key] = _Graph(graph, static, static_out, events=events)
+        if not warm:
+            self._replay(entry, args)
+            out = static_out
         self.captures.append({"signature": key, "ms": (time.perf_counter() - t0) * 1e3})
         return out
