@@ -319,6 +319,10 @@ MAMBA_SSD = (8, 1024, 24, 64, 1, 128, 256)
 RGEMMA_ATTN = (8, 1024, 1024, 10, 1, 256, True, 2048)
 RGEMMA_ATTN_WINDOW = (2, 4096, 4096, 10, 1, 256, True, 2048)
 RGEMMA_RGLRU = (8, 1024, 2560)
+# qwen2-vl-2b's decode attention in the benchmark's cells (12 query heads on
+# 2 kv heads of 128, bf16): 256 rows at a 768-slot cache (chat) and 16
+# rows at 8200 slots (doc); B, H, K, T, hd.
+DECODE_ATTN = {"chat": (256, 12, 2, 768, 128), "doc": (16, 12, 2, 8200, 128)}
 # The MoE, VLM and enc-dec models' prefill attention (8 prompts of 1024
 # positions, bf16): moonshot-v1-16b-a3b (16 query and 16 kv heads of 128),
 # qwen2-vl-2b (12 query heads on 2 kv heads of 128), seamless-m4t-large-v2
@@ -1683,6 +1687,98 @@ def phase_flash_new_shapes(device) -> dict:
     return recs
 
 
+def _time_decode(case, device, seed: int) -> dict:
+    """The decode kernel at one of DECODE_ATTN's shapes in bf16, the cache
+    filled to its last slot and the position a 0-d tensor on the card:
+    timed beside the plain route (chunked_attention) and beside
+    scaled_dot_product_attention (the yardstick; the port never calls it)
+    over the live keys, which a query at the last live key sees all of,
+    so no mask; the bound from the live cache's bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.models.layers import chunked_attention
+
+    B, H, K, T, hd = case
+    q, k, v = _attn_inputs((B, 1, T, H, K, hd), torch.bfloat16, device, seed)
+    idx = torch.tensor(T - 1, dtype=torch.int32, device=device)
+    length = idx + 1
+    got = decode_attention_cuda(q, k, v, q_offset=idx, kv_len=length)
+    want = chunked_attention(q, k, v, q_offset=T - 1, kv_len=T, kv_chunk=T)
+    err = _err(got, want, ML_TOL["bfloat16"], f"decode_attention {case}")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))  # SDPA's (B, heads, S, hd) views
+    lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+    lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
+    ms = _events_ms(lambda: decode_attention_cuda(q, k, v, q_offset=idx, kv_len=length),
+                    TIMED_REPS)
+    plain_ms = _events_ms(lambda: chunked_attention(q, k, v, q_offset=T - 1, kv_len=T,
+                                                    kv_chunk=T), ML_REPS)
+    library_ms = _events_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
+                            TIMED_REPS)
+    n_bytes = 2 * (2 * B * H * hd + 2 * B * T * K * hd)  # q, o and the live k, v in bf16
+    n_ops = 4 * B * H * hd * T  # q k and p v, on the CUDA cores in float32
+    return {"shape": dict(zip(("B", "H", "K", "T", "hd"), case, strict=True)),
+            "dtype": "bfloat16", "fill": T, "max_abs_err": err,
+            "sdpa_vs_plain_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "plain_over_kernel": plain_ms / ms,
+            "kernel_over_sdpa": ms / library_ms,
+            **_ml_bound(n_ops, n_bytes, ops_per_s=FP32_OPS_PER_S)}
+
+
+def phase_decode_vs_plain(device) -> dict:
+    """decode_attention: the kernel through ``ops.flash_attention`` (S ==
+    1 on the card, one launch a call) vs the plain route, chunked_attention
+    on the same inputs, at the benchmark cells' shapes (DECODE_ATTN) in
+    float32 and bf16, the position a 0-d tensor at a middle and the last
+    fill: within ML_TOL, and at bf16 also within half a bf16 unit (2**-8 of
+    the magnitude) and 2e-5 of the plain route at float32 on the same
+    operands, the kernel's one rounding; then timed at both shapes (the
+    chat shape's record returned, the doc shape's under "doc")."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.models.layers import chunked_attention
+
+    errs = {}
+    for i, (what, case) in enumerate(DECODE_ATTN.items()):
+        B, H, K, T, hd = case
+        for name in ML_TOL:
+            q, k, v = _attn_inputs((B, 1, T, H, K, hd), getattr(torch, name), device, 70 + i)
+            for pos in (T // 2 + 3, T - 1):
+                idx = torch.tensor(pos, dtype=torch.int32, device=device)
+                before = decode_attention_cuda.launches
+                got = ops.flash_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
+                if decode_attention_cuda.launches != before + 1:
+                    raise AssertionError(f"decode_attention {what} {name}: "
+                                         f"{decode_attention_cuda.launches - before} launches")
+                want = chunked_attention(q, k, v, q_offset=pos, kv_len=pos + 1, kv_chunk=T)
+                key = f"{what} fill {pos + 1} {name}"
+                errs[key] = _err(got, want, ML_TOL[name], f"decode_attention {key}")
+                if name == "bfloat16":
+                    want32 = chunked_attention(q.float(), k.float(), v.float(), q_offset=pos,
+                                               kv_len=pos + 1, kv_chunk=T)
+                    _err(got, want32, 2e-5, f"decode_attention {key} against float32",
+                         rtol=2.0**-8)
+                del got, want
+            del q, k, v
+    print(f"[kernel] decode_attention: {len(errs)} cases within tolerance (the cells' shapes "
+          f"{DECODE_ATTN}), max abs err "
+          f"f32 {max(e for c, e in errs.items() if c.endswith('float32')):.3g}, "
+          f"bf16 {max(e for c, e in errs.items() if c.endswith('bfloat16')):.3g}", flush=True)
+    rec = {**_time_decode(DECODE_ATTN["chat"], device, 60), "case_errs": errs}
+    rec["doc"] = _time_decode(DECODE_ATTN["doc"], device, 61)
+    print("[kernel] " + json.dumps({"decode_attention_timing": rec}), flush=True)
+    for what, r in (("chat", rec), ("doc", rec["doc"])):
+        print(f"[kernel] decode_attention at the {what} cell's shape {DECODE_ATTN[what]}: "
+              f"{r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%} of it); plain {r['plain_ms']:.4f} ms "
+              f"({r['plain_over_kernel']:.1f}x the kernel's time); SDPA {r['library_ms']:.4f} ms "
+              f"(the kernel takes {r['kernel_over_sdpa']:.2f}x)", flush=True)
+    return rec
+
+
 def _ssd_inputs(case, dtype, device, seed):
     import torch
 
@@ -1858,6 +1954,7 @@ def _cpu_tree(tree: dict) -> dict:
 # serving path's SSD scan runs the tensor-core kernel's four passes.
 KERNEL_SYMBOLS = {
     "flash_attention": ("flash_attention_kernel",),
+    "decode_attention": ("decode_attention_kernel",),
     "ssd_scan": ("ssd_chunk_kernel", "ssd_score_kernel", "ssd_state_kernel", "ssd_out_kernel"),
     "rglru_scan": ("rglru_chunk_scan_kernel",),
 }
@@ -2051,25 +2148,31 @@ def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tupl
     each step run once eagerly first, and the second replays them), then
     one of ``short``, a shorter prompt (under ``jit`` a second prefill
     graph).  The wrappers' launch counts of each: a prefill's kernels once
-    a layer of their kind and no other, every flash and SSD launch on the
-    tensor cores; under ``jit`` the replaying second none (a replay runs no
-    wrapper).  The tokens of the second and the short ``generate``; three
-    timed prefills and the decode steps' mean ms; the card's peak memory
-    from the engine's first call, after the first prompt length and after
-    both; under ``jit``, each prefill graph's launches (its kernel nodes)
-    held to the same want and each decode graph's to none; a traced 8-token
+    a layer of their kind and a decode step's decode attention once a layer
+    with a KV cache (every step eagerly, the warm-up step under ``jit``),
+    and no other, every flash and SSD launch on the tensor cores; under
+    ``jit`` the replaying second none (a replay runs no wrapper).  The
+    tokens of the second and the short ``generate``; three timed prefills
+    and the decode steps' mean ms; the card's peak memory from the engine's
+    first call, after the first prompt length and after both; under
+    ``jit``, each prefill graph's launches (its kernel nodes) held to the
+    prefill's want and each decode graph's to a step's; a traced 8-token
     ``generate`` (under ``jit``, a replay): its launches (the wrappers' or
-    its prefill graph's), held to the same want and each shown among its
-    device kernels, and its device split; under ``jit``, each capture's ms
-    (the first call of a step: warm-up and capture)."""
+    its graphs'), held to the same wants and each shown among its device
+    kernels, and its device split; under ``jit``, each capture's ms (the
+    first call of a step: warm-up and capture)."""
     import torch
 
+    from repro_torch.kernels.counts import decode_launches
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.serve.graphs import signature
 
     cfg = model.cfg
     want = _expected_launches(cfg)
     S, new = SERVE["prompt"], SERVE["new"]
+    # a generate's launches: its prefill's, then one decode step's under jit
+    # (the warm-up before the capture) or every step's eagerly
+    generate_want = {**want, **decode_launches(cfg, 1 if jit else new - 1)}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
@@ -2085,7 +2188,7 @@ def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tupl
     for which in ("first", "second"):
         (out, gen_s), counts = _counted(lambda: run(batch))
         _check_launches(f"serve {cfg.name} jit={jit}, {which} generate", counts,
-                        {} if jit and which == "second" else want)
+                        {} if jit and which == "second" else generate_want)
         runs.append((out, gen_s, counts))
     out = runs[1][0]
     if not torch.equal(out, runs[0][0]):
@@ -2096,9 +2199,14 @@ def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tupl
         raise AssertionError(f"serve {cfg.name}: tokens {tuple(out.shape)} out of range")
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     reserved_gb = torch.cuda.max_memory_reserved(device) / 1e9
+    decode_graphs = len(engine._decode.graphs) if jit else 0
     (out_short, short_s), short_counts = _counted(lambda: run(short))
+    # under jit the decode step replays its graph, unless the shorter prompt
+    # changed its state's shape (an enc-dec's cross cache): a new capture,
+    # whose warm-up step launches
     _check_launches(f"serve {cfg.name} jit={jit}, a shorter prompt's generate", short_counts,
-                    want)
+                    {**want, **decode_launches(cfg, len(engine._decode.graphs) - decode_graphs)}
+                    if jit else generate_want)
     prefill_ms, decode_ms = _prefill_decode_ms(engine, batch, S, new)
     rec = {"jit": jit, "generate_first_s": runs[0][1], "generate_s": runs[1][1],
            "tokens_per_s": len(out) * new / runs[1][1], "prefill_ms": prefill_ms,
@@ -2123,20 +2231,22 @@ def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tupl
             for step, engine_step in (("prefill", engine._prefill), ("decode", engine._decode))}
         for got in rec["graph_launches"]["prefill"]:
             _check_launches(f"serve {cfg.name}, a prefill graph's kernel nodes", got, want)
-        if any(rec["graph_launches"]["decode"]):
-            raise AssertionError(f"serve {cfg.name}: a decode graph launches "
-                                 f"{rec['graph_launches']['decode']}; want none of the kernels")
+        for got in rec["graph_launches"]["decode"]:
+            _check_launches(f"serve {cfg.name}, a decode graph's kernel nodes", got,
+                            decode_launches(cfg, 1))
+    traced_want = {**want, **decode_launches(cfg, 7)}  # 8 tokens: a prefill and 7 steps
     split, traced = _counted(lambda: _device_split(
         lambda: (engine.generate(batch, 8), torch.cuda.synchronize()),
-        kernels=tuple(k for n in want for k in KERNEL_SYMBOLS[n])))
+        kernels=tuple(k for n in traced_want for k in KERNEL_SYMBOLS[n])))
     if "launches_seen" not in split:
         raise AssertionError(f"serve {cfg.name} jit={jit}: {split['device_us']}; the traced "
                              f"generate's launches cannot be read")
-    # the traced generate's launches: the wrappers' (eager) or its prefill
-    # graph's replay (the graph's kernel nodes), each shown in the trace
+    # the traced generate's launches: the wrappers' (eager) or its graphs'
+    # replays (the graphs' kernel nodes), each shown in the trace
     _check_launches(f"serve {cfg.name} jit={jit}, the traced generate's wrappers", traced,
-                    {} if jit else want)
-    rec["launches"] = (engine._prefill.launches(signature((batch,))) if jit else
+                    {} if jit else traced_want)
+    rec["launches"] = ({**engine._prefill.launches(signature((batch,))),
+                        **decode_launches(cfg, 7)} if jit else
                        {k: n for k, n in traced.items() if n})
     _check_traced(f"serve {cfg.name} jit={jit}, the traced generate", split["launches_seen"],
                   rec["launches"])
@@ -3096,6 +3206,7 @@ def main() -> int:
     timing_batch = phase_batch_kernel_vs_plain(device)
     timing_flash = phase_flash_vs_plain(device)
     phase_flash_new_shapes(device)
+    timing_decode = phase_decode_vs_plain(device)
     timing_ssd = phase_ssd_vs_plain(device)
     timing_rglru = phase_rglru_vs_plain(device)
 
@@ -3227,6 +3338,10 @@ def main() -> int:
          + train_route["pallas_route_launches"]["flash_attention_mma"]),
         ("ssd_scan", "src/repro/kernels/ssd_scan.py:103", timing_ssd, served("ssd_scan_mma")),
         ("rglru_scan", "src/repro/kernels/rglru_scan.py:75", timing_rglru, served("rglru_scan")),
+        # no TPU kernel: the reference's ops.flash_attention sends S == 1 to
+        # chunked_attention in XLA ops
+        ("decode_attention", "none (src/repro/kernels/ops.py:60)", timing_decode,
+         served("decode_attention")),
     ):
         kernels.append({
             "name": name,

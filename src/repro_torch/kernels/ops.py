@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .placement_step import (
     placement_sweep_batch_cuda,
@@ -90,14 +91,22 @@ def flash_attention(
     """GQA attention of q (B, S, H, hd) against k, v (B, T, K, hd).
 
     The flash kernel covers the full-sequence cases (train, prefill).
-    Decode (S == 1), a runtime ``kv_len`` or a tensor ``q_offset`` go to
+    Decode (S == 1) on a CUDA tensor runs the decode kernel
+    (``decode_attention_cuda``: the cache in its own type, ``kv_len`` and a
+    tensor ``q_offset`` read on the device), on a CPU tensor
     ``layers.chunked_attention`` (``kv_chunk`` keys at a time, the wholly
     masked ones skipped under ``unroll_causal``, p @ v in ``p_dtype``),
-    where the JAX package runs no kernel either.
+    where the JAX package runs no kernel either.  S > 1 with a runtime
+    ``kv_len`` or a tensor ``q_offset`` (a prefill continuing a cache) goes
+    to ``chunked_attention`` on either device; no benchmark cell runs one.
     """
     from ..models.layers import chunked_attention
 
     S = q.shape[1]
+    if S == 1 and q.device.type == "cuda":
+        q, k, v = (t.contiguous() for t in (q, k, v))  # the kernel reads dense rows
+        return decode_attention_cuda(q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal,
+                                     window=window, p_dtype=p_dtype)
     if S == 1 or kv_len is not None or not isinstance(q_offset, int):
         return chunked_attention(
             q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal, window=window,

@@ -9,7 +9,10 @@ one; ``cpu`` runs their plain versions; ``--eos-id``: a row stops at this
 token (the engine's stop check, which reads the card once a step); and
 ``--trace``: a second ``generate`` of the same batch with the program's
 tracing on (``repro_torch.trace``), after which the launcher prints the
-counters (``trace.snapshot()``) and each span's ms a step
+counters (``trace.snapshot()``), the kernels' launches (the wrappers'
+counts, ``kernels.counts``, and on a card what one replay of each
+captured step launches, ``CudaGraphStep.launches``: the decode step's
+``decode_attention`` one a layer) and each span's ms a step
 (``trace.spans()``: the device's on a card, the host's clock on the CPU;
 ``serve.stop`` is the stop check's).  Every registered ``--arch`` is
 served at its reduced width.  The stub frontends get the JAX package's
@@ -27,9 +30,11 @@ import torch
 
 from .. import trace
 from ..configs import get_arch, list_archs
+from ..kernels import counts
 from ..models import Model
 from ..models.model import resolve_device
 from ..serve import ServeConfig, ServeEngine
+from ..serve.graphs import CudaGraphStep
 
 __all__ = ["main"]
 
@@ -85,6 +90,13 @@ def main(argv=None) -> int:
             engine.generate(batch, args.new_tokens,
                             generator=torch.Generator(model.device).manual_seed(args.seed))
         print("counters:", " ".join(f"{k}={v:g}" for k, v in sorted(trace.snapshot().items())))
+        print("launches (wrappers):",
+              " ".join(f"{k}={n}" for k, n in counts.read().items() if n) or "none")
+        for name, step in (("prefill", engine._prefill), ("decode", engine._decode)):
+            if isinstance(step, CudaGraphStep):
+                for key in step.graphs:
+                    print(f"launches a {name} replay:",
+                          " ".join(f"{k}={n}" for k, n in step.launches(key).items()))
         for name, ms in sorted(trace.spans().items()):
             print(f"span {name}: {sum(ms) / len(ms):.3f} ms a step over {len(ms)}")
     return 0

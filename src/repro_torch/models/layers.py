@@ -5,9 +5,10 @@ functions in the sibling model files.  The cast points are the JAX
 package's: norms, RoPE, the softmax and the SiLU in float32, the products
 in the activations' type (``cfg.dtype``).
 
-``chunked_attention`` is the online-softmax attention in plain torch ops,
-used for decode (one query against a cache with a runtime fill) and by
-``ops.flash_attention`` wherever the flash kernel does not apply.  The
+``chunked_attention`` is the online-softmax attention in plain torch ops:
+the ``"xla"`` route, decode (one query against a cache with a runtime
+fill) on CPU tensors, and ``ops.flash_attention`` wherever neither the
+flash kernel nor the decode kernel applies.  The
 MoE layer's expert products are batched matrix products (cuBLAS on the
 card), as the JAX package runs them outside any Pallas kernel.
 """

@@ -6,8 +6,10 @@ Full-sequence attention goes through ``_attn_dispatch``: on the
 ``"pallas"`` route (the default) ``kernels.ops.flash_attention``, whose
 tensors' device picks the flash kernel (CUDA) or its plain version (CPU);
 on the ``"xla"`` route ``layers.chunked_attention``, plain differentiable
-torch on any device, which training takes.  Decode runs
-``layers.chunked_attention``.  The VLM takes
+torch on any device, which training takes.  Decode takes the same
+routes: on ``"pallas"`` the decode kernel on CUDA tensors
+(``kernels.decode_attention``) and ``layers.chunked_attention`` on CPU
+tensors, on ``"xla"`` ``layers.chunked_attention``.  The VLM takes
 precomputed patch embeddings as a prefix of the token embeddings (the
 vision frontend is a stub, as in the JAX package) and 3-D (t, h, w)
 positions for M-RoPE.
@@ -97,8 +99,10 @@ class ExecConfig:
     filled: decode at ``cache_idx`` scores the cache ``kv_chunk`` keys at a
     time and skips each chunk wholly past ``cache_idx`` (the JAX package's
     unrolled ``chunked_attention`` conditions), where it otherwise scores
-    the whole cache as one chunk; on either route, whose decode both run
-    ``chunked_attention``.  The logits are the same up to the order of the
+    the whole cache as one chunk; wherever decode runs ``chunked_attention``
+    (the ``"xla"`` route, and ``"pallas"`` on CPU tensors: ``"pallas"``'s
+    decode kernel on the card reads the filled part alone, knob or not).
+    The logits are the same up to the order of the
     softmax's sums, and a step at fill f of a T-slot cache scores
     ceil((f + 1) / kv_chunk) chunks instead of T keys.  A full-sequence
     call has no chunk to skip (its last query sees every key), so there
@@ -295,10 +299,11 @@ def _cached_attention(ex: ExecConfig, q, ck, cv, cache_idx) -> torch.Tensor:
     """The step's queries at ``cache_idx`` against a ``(B, T, K, hd)``
     cache filled to ``cache_idx + S``: one chunk of T keys for decode,
     ``kv_chunk`` keys a chunk, the unfilled ones skipped, under
-    ``ex.unroll_causal`` (see ``ExecConfig``)."""
+    ``ex.unroll_causal`` (see ``ExecConfig``), on ``ex.attn_impl``'s route."""
     S, T = q.shape[1], ck.shape[1]
     unroll = ex.unroll_causal and isinstance(cache_idx, int)
-    return ops.flash_attention(
+    attend = ops.flash_attention if ex.attn_impl == "pallas" else chunked_attention
+    return attend(
         q, ck.to(q.dtype), cv.to(q.dtype), q_offset=cache_idx, kv_len=cache_idx + S,
         causal=True, window=0, kv_chunk=T if S == 1 and not unroll else min(ex.kv_chunk, T),
         unroll_causal=unroll, p_dtype=ex.attn_p_dtype,

@@ -52,7 +52,11 @@ host's time is named by ``graph.capture`` and ``graph.replay`` ranges.
 
 There is no fallback: a warm-up, capture or replay that fails raises (a
 host read inside ``fn``, such as ``.item()``, makes the capture fail), and
-nothing is retried eagerly.
+nothing is retried eagerly.  A capture that fails leaves no allocation
+routed into the step's pool: the step ends the routing, which
+``torch.cuda.graph`` leaves open when the capture was invalidated (its
+``capture_end`` raises first), and while it is open the caching
+allocator gives no cached block back to the device.
 """
 
 from __future__ import annotations
@@ -108,6 +112,15 @@ class _Graph:
     replays: int = 0
     launches: dict | None = None  # one replay's, read from the graph on first use
     events: list = dataclasses.field(default_factory=list)  # the spans' (``trace.capturing``)
+
+
+def _end_allocating_to(pool) -> None:
+    """End the current device's allocations into ``pool`` after a capture
+    that raised; nothing when ``capture_end`` had ended them."""
+    try:
+        torch._C._cuda_endAllocateToPool(torch.cuda.current_device(), pool)
+    except RuntimeError:
+        pass  # "not currently recording to" the pool: already ended
 
 
 class CudaGraphStep:
@@ -224,6 +237,9 @@ class CudaGraphStep:
                 with trace.capturing(events if self.spans else None), torch.cuda.graph(
                         graph, pool=self.pool, stream=self._stream):
                     static_out = self.fn(*static_args)
+            except BaseException:
+                _end_allocating_to(self.pool)
+                raise
             finally:
                 if gc_on:
                     gc.enable()

@@ -351,7 +351,7 @@ def write_slice(dst: torch.Tensor, src: torch.Tensor, start: int | torch.Tensor,
     n = src.shape[dim]
     if not isinstance(dst, DTensor):
         if isinstance(start, torch.Tensor):
-            index = start.to(torch.long) + torch.arange(n, device=dst.device)
+            index = torch.arange(n, device=dst.device) + start  # int64, start not cast apart
             dst.index_copy_(dim, index, src.to(dst.dtype))
         else:
             dst.narrow(dim, start, n).copy_(src)

@@ -27,6 +27,7 @@ from repro_torch.core.placement_backends import (  # noqa: E402
     survivor_tables,
 )
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda,
     flash_attention_plain,
@@ -422,15 +423,18 @@ def test_flash_attention_kernel_at_recurrentgemma_local_attention(cuda_device):
 @pytest.mark.needs_cuda
 def test_flash_attention_kernel_q_offset_and_decode_route(cuda_device):
     """A prefill continuation (q_offset > 0, S < T) runs the kernel; decode
-    (S == 1 with a kv_len) takes chunked_attention and launches nothing."""
+    (S == 1 with a kv_len) takes the decode kernel and launches no flash
+    kernel."""
     q, k, v = _qkv((2, 40, 100, 6, 2, 64), torch.float32, cuda_device, seed=3)
     _close(flash_attention_cuda(q, k, v, q_offset=60),
            flash_attention_plain(q, k, v, q_offset=60), 2e-5)
     _close(flash_attention_cuda(q, k, v, q_offset=60, window=17),
            flash_attention_plain(q, k, v, q_offset=60, window=17), 2e-5)
     before = flash_attention_cuda.launches
+    before_decode = decode_attention_cuda.launches
     ops.flash_attention(q[:, :1], k, v, q_offset=70, kv_len=71)
     assert flash_attention_cuda.launches == before
+    assert decode_attention_cuda.launches == before_decode + 1
 
 
 @pytest.mark.needs_cuda

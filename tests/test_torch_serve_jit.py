@@ -270,7 +270,8 @@ def test_launch_counts_read_reset_add_and_delta():
     saved = counts.read()
     try:
         assert set(saved) == {"placement_sweep", "placement_sweep_batch", "flash_attention",
-                              "flash_attention_mma", "ssd_scan", "ssd_scan_mma", "rglru_scan"}
+                              "flash_attention_mma", "decode_attention", "ssd_scan",
+                              "ssd_scan_mma", "rglru_scan"}
         counts.reset()
         assert set(counts.read().values()) == {0}
         before = counts.read()
@@ -428,23 +429,25 @@ def test_captured_generate_equals_eager_and_replays(cuda_device, name):
     cfg = ServeConfig(max_len=S + new)
     eager, captured = ServeEngine(model, cfg, jit=False), ServeEngine(model, cfg)
     want = _want_launches(model.cfg)
+    step = counts.decode_launches(model.cfg, 1)  # a decode step's
     first, second = (_torch(_batch(model.cfg, S, seed), cuda_device) for seed in (1, 2))
     got, n_first = _counted(lambda: captured.generate(first, new))  # captures both steps
     assert torch.equal(got, eager.generate(first, new))
     assert len(captured._prefill.graphs) == len(captured._decode.graphs) == 1
-    assert n_first == want  # the eager warm-up's launches
+    assert n_first == {**want, **step}  # the eager warm-ups' launches
     assert captured._prefill.replayed == {}
     (again, seen), n_again = _counted(
         lambda: _traced_launches(lambda: captured.generate(first, new)))  # replays
     assert torch.equal(again, got) and n_again == {}  # a replay runs no wrapper
     (prefill_key,), (decode_key,) = captured._prefill.graphs, captured._decode.graphs
     assert captured._prefill.launches(prefill_key) == want  # the graph's kernel nodes
-    assert captured._decode.launches(decode_key) == {}
-    assert _shows(seen, want) and captured._prefill.replayed == want
+    assert captured._decode.launches(decode_key) == step
+    steps = counts.decode_launches(model.cfg, new - 1)
+    assert _shows(seen, {**want, **steps}) and captured._prefill.replayed == want
     other, n_other = _counted(lambda: captured.generate(second, new))
     _, n_eager = _counted(lambda: eager.generate(second, new))
     assert torch.equal(other, eager.generate(second, new))
-    assert n_other == {} and n_eager == want
+    assert n_other == {} and n_eager == {**want, **steps}
     assert captured._prefill.replayed == {k: 2 * n for k, n in want.items()}
     assert len(captured._prefill.graphs) == len(captured._decode.graphs) == 1
     assert len(captured._prefill.captures) == len(captured._decode.captures) == 1
@@ -495,6 +498,31 @@ def test_a_host_read_in_a_captured_step_raises_without_an_eager_retry(cuda_devic
 
 
 @pytest.mark.needs_cuda
+def test_a_failed_capture_leaves_no_allocation_routed_into_its_pool(cuda_device):
+    """After a capture that raised (a host read inside it), the step's pool
+    takes no more allocations (ending them again finds nothing to end),
+    and a block freed afterwards goes back to the device on
+    ``empty_cache``: with the routing left open the caching allocator kept
+    every later engine's blocks."""
+    model = _model("smollm-135m", cuda_device, seed=5)
+    real = model.prefill
+    model.prefill = lambda batch: (int(batch["tokens"].sum().item()), real(batch))[1]
+    engine = ServeEngine(model, ServeConfig(max_len=16))
+    with pytest.raises(RuntimeError):
+        engine.generate(_torch(_batch(model.cfg, 8, 6), cuda_device), 3)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        torch._C._cuda_endAllocateToPool(torch.cuda.current_device(), engine._prefill.pool)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    block = torch.empty(1 << 30, dtype=torch.uint8, device=cuda_device)
+    assert torch.cuda.memory_reserved() >= before + (1 << 30)
+    del block
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() == before
+
+
+@pytest.mark.needs_cuda
 def test_decode_step_at_a_device_position_equals_the_int_position_on_the_card(cuda_device):
     model = _model("recurrentgemma-2b", cuda_device, seed=6)
     S = 13
@@ -524,7 +552,8 @@ def test_bf16_captured_generate_runs_on_the_tensor_core_kernels(cuda_device):
                                      generator=torch.Generator(cuda_device).manual_seed(9))}
     want = {"flash_attention": cfg.n_layers, "flash_attention_mma": cfg.n_layers}
     _, n = _counted(lambda: engine.generate(batch, 4))  # the warm-up and the captures
-    assert n == want
+    assert n == {**want, **counts.decode_launches(cfg, 1)}
     (_, seen), n = _counted(lambda: _traced_launches(lambda: engine.generate(batch, 4)))
     (key,) = engine._prefill.graphs
-    assert n == {} and engine._prefill.launches(key) == want and _shows(seen, want)
+    assert n == {} and engine._prefill.launches(key) == want
+    assert _shows(seen, {**want, **counts.decode_launches(cfg, 3)})

@@ -238,6 +238,7 @@ def test_the_serve_launcher_prints_the_spans_and_counters_with_trace(capsys, eos
                            *(["--eos-id", str(model.cfg.vocab - 1)] if eos else [])]) == 0
     out = capsys.readouterr().out
     assert "counters: graph.capture_ms=0 graph.captures=0 graph.replays=0" in out
+    assert "launches (wrappers): none" in out  # the plain versions launch no kernel
     for name in ("serve.generate", "serve.prefill/head", "serve.decode/attn.core", "serve.sample"):
         assert f"span {name}: " in out
     assert "span serve.decode: " in out and " over 2" in out
