@@ -323,6 +323,12 @@ RGEMMA_RGLRU = (8, 1024, 2560)
 # 2 kv heads of 128, bf16): 256 rows at a 768-slot cache (chat) and 16
 # rows at 8200 slots (doc); B, H, K, T, hd.
 DECODE_ATTN = {"chat": (256, 12, 2, 768, 128), "doc": (16, 12, 2, 8200, 128)}
+# moonlight-16b-a3b's latent decode attention in its benchmark cell (16
+# query heads against a 512-wide latent and a 64-wide rope key, bf16): 64
+# rows at a 768-slot cache, timed at fill 512 (prompt + new / 2); B, H, T,
+# the timed fill; the score scale 1 / sqrt(128 + 64).
+MLA_DECODE = (64, 16, 768, 512)
+MLA_SCALE = 192 ** -0.5
 # The MoE, VLM and enc-dec models' prefill attention (8 prompts of 1024
 # positions, bf16): moonshot-v1-16b-a3b (16 query and 16 kv heads of 128),
 # qwen2-vl-2b (12 query heads on 2 kv heads of 128), seamless-m4t-large-v2
@@ -1779,6 +1785,125 @@ def phase_decode_vs_plain(device) -> dict:
     return rec
 
 
+def _mla_inputs(B, H, T, dtype, device, seed):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(sh), dtype=torch.float32).to(device, dtype)
+            for sh in ((B, H, 576), (B, T, 512), (B, T, 64))]
+
+
+def phase_mla_decode_vs_plain(device) -> dict:
+    """mla_decode (kernel 7): the kernel through ``ops.mla_decode`` (one
+    launch a call) vs its plain route, ``mla_decode_plain`` on the same
+    inputs, at the benchmark cell's shape (MLA_DECODE) in float32 and bf16,
+    the length a 0-d tensor at fills 1, 512, 767 and 768: within ML_TOL, and
+    at bf16 also within half a bf16 unit (2**-8 of the magnitude) and 2e-5
+    of the plain route at float32 on the same operands; then, in bf16 at
+    the timed fill, timed beside the plain route, the live bytes' bound and
+    scaled_dot_product_attention over the expanded heads (the yardstick;
+    the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mla_decode import mla_decode_cuda, mla_decode_plain
+
+    B, H, T, fill = MLA_DECODE
+    errs = {}
+    for name in ML_TOL:
+        q, c, kr = _mla_inputs(B, H, T, getattr(torch, name), device, 90)
+        for n in (1, fill, T - 1, T):
+            length = torch.tensor(n, dtype=torch.int32, device=device)
+            before = mla_decode_cuda.launches
+            got = ops.mla_decode(q, c, kr, kv_len=length, scale=MLA_SCALE)
+            if mla_decode_cuda.launches != before + 1:
+                raise AssertionError(f"mla_decode {name}: "
+                                     f"{mla_decode_cuda.launches - before} launches")
+            want = mla_decode_plain(q, c, kr, kv_len=n, scale=MLA_SCALE)
+            key = f"fill {n} {name}"
+            errs[key] = _err(got, want, ML_TOL[name], f"mla_decode {key}")
+            if name == "bfloat16":
+                want32 = mla_decode_plain(q.float(), c.float(), kr.float(), kv_len=n,
+                                          scale=MLA_SCALE)
+                _err(got, want32, 2e-5, f"mla_decode {key} against float32", rtol=2.0**-8)
+            del got, want
+        del q, c, kr
+    print(f"[kernel] mla_decode: {len(errs)} cases within tolerance (the cell's shape "
+          f"{MLA_DECODE[:3]}), max abs err "
+          f"f32 {max(e for k, e in errs.items() if k.endswith('float32')):.3g}, "
+          f"bf16 {max(e for k, e in errs.items() if k.endswith('bfloat16')):.3g}", flush=True)
+
+    q, c, kr = _mla_inputs(B, H, T, torch.bfloat16, device, 91)
+    length = torch.tensor(fill, dtype=torch.int32, device=device)
+    got = mla_decode_cuda(q, c, kr, kv_len=length, scale=MLA_SCALE)
+    err = _err(got, mla_decode_plain(q, c, kr, kv_len=fill, scale=MLA_SCALE),
+               ML_TOL["bfloat16"], f"mla_decode timed fill {fill}")
+    ms = _events_ms(lambda: mla_decode_cuda(q, c, kr, kv_len=length, scale=MLA_SCALE),
+                    TIMED_REPS)
+    plain_ms = _events_ms(lambda: mla_decode_plain(q, c, kr, kv_len=length, scale=MLA_SCALE),
+                          ML_REPS)
+    # SDPA's (B, heads, S, width) views of the live part: one kv head of
+    # keys (latent ‖ rope) and values (the latent) for the 16 query heads
+    qt = q[:, :, None]
+    kt = torch.cat([c[:, :fill], kr[:, :fill]], dim=-1)[:, None]
+    vt = c[:, None, :fill]
+    lib = F.scaled_dot_product_attention(qt, kt, vt, scale=MLA_SCALE, enable_gqa=True)
+    lib_err = float((lib[:, :, 0].float() - got.float()).abs().max())
+    library_ms = _events_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, scale=MLA_SCALE, enable_gqa=True), TIMED_REPS)
+    n_bytes = 2 * B * (fill * (512 + 64) + H * (512 + 64) + H * 512)  # the live rows, q, o
+    n_ops = 2 * B * H * fill * (2 * 512 + 64)  # scores and the latent sum, on the tensor cores
+    rec = {"shape": dict(zip(("B", "H", "T"), MLA_DECODE[:3], strict=True)),
+           "dtype": "bfloat16", "fill": fill, "max_abs_err": err,
+           "sdpa_vs_kernel_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "plain_over_kernel": plain_ms / ms,
+           "kernel_over_sdpa": ms / library_ms, "case_errs": errs,
+           **_ml_bound(n_ops, n_bytes)}
+    print("[kernel] " + json.dumps({"mla_decode_timing": rec}), flush=True)
+    print(f"[kernel] mla_decode at the cell's shape {MLA_DECODE[:3]}, fill {fill}: {ms:.4f} ms; "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {rec['bound_ms'] / ms:.1%} of "
+          f"it); plain {plain_ms:.4f} ms ({rec['plain_over_kernel']:.1f}x the kernel's time); "
+          f"SDPA {library_ms:.4f} ms (the kernel takes {rec['kernel_over_sdpa']:.2f}x)",
+          flush=True)
+    return rec
+
+
+def phase_mla_replay(device) -> dict:
+    """moonlight-16b-a3b's 27 layers at its attention widths (the rest cut
+    small: d_model 256, 8 experts of 64, vocab 1024) through
+    ``ServeEngine.generate(jit=True)``: one decode graph whose replays each
+    launch kernel 7 once a layer (``CudaGraphStep.launches``); returns the
+    launches a replay and over the generate's replays."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    full = get_arch("moonlight-16b-a3b")
+    cfg = dataclasses.replace(full, name="moonlight-small", d_model=256, d_ff=64, vocab=1024,
+                              dense_d_ff=128,
+                              moe=dataclasses.replace(full.moe, n_experts=8, top_k=2))
+    model = Model(cfg, generator=torch.Generator(device).manual_seed(0), device=device,
+                  dtype=torch.bfloat16)
+    engine = ServeEngine(model, ServeConfig(max_len=40), jit=True)
+    tokens = torch.randint(0, cfg.vocab, (4, 20), device=device, dtype=torch.int32,
+                           generator=torch.Generator(device).manual_seed(1))
+    engine.generate({"tokens": tokens}, 8)
+    (key,) = list(engine._decode.graphs)
+    per_replay = engine._decode.launches(key).get("mla_decode", 0)
+    if per_replay != cfg.n_layers:
+        raise AssertionError(f"a moonlight decode replay launched mla_decode {per_replay} "
+                             f"times, not once a layer ({cfg.n_layers})")
+    rec = {"per_replay": per_replay, "replayed": engine._decode.replayed["mla_decode"]}
+    print("[launches] " + json.dumps({"mla_decode_moonlight_decode": rec}), flush=True)
+    del engine, model
+    return rec
+
+
 def _ssd_inputs(case, dtype, device, seed):
     import torch
 
@@ -3186,6 +3311,18 @@ def _against_torch_213(row: dict) -> dict:
 
 
 
+def _kernel_row(name: str, replaces: str, rec: dict, launches: int) -> dict:
+    """A kernel's entry on the final ``kernels`` line: its source, the TPU
+    code it stands for, its launches on the main path, and its phase's
+    error, times and bound."""
+    sources = {"flash_attention": "flash_attention_mma", "ssd_scan": "ssd_scan_mma"}
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{sources.get(name, name)}.cu",
+            "replaces": replaces, "launches": launches,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+
+
 def main() -> int:
     import torch
 
@@ -3207,6 +3344,8 @@ def main() -> int:
     timing_flash = phase_flash_vs_plain(device)
     phase_flash_new_shapes(device)
     timing_decode = phase_decode_vs_plain(device)
+    timing_mla = phase_mla_decode_vs_plain(device)
+    mla_replay = phase_mla_replay(device)
     timing_ssd = phase_ssd_vs_plain(device)
     timing_rglru = phase_rglru_vs_plain(device)
 
@@ -3325,7 +3464,6 @@ def main() -> int:
                    for jit in ("jit_true", "jit_false"))
 
     # the bf16 main path's kernels
-    sources = {"flash_attention": "flash_attention_mma", "ssd_scan": "ssd_scan_mma"}
     kernels = []
     for name, replaces, rec, n in (
         ("placement_sweep", "src/repro/kernels/placement_step.py:136", timing,
@@ -3342,16 +3480,11 @@ def main() -> int:
         # chunked_attention in XLA ops
         ("decode_attention", "none (src/repro/kernels/ops.py:60)", timing_decode,
          served("decode_attention")),
+        # no TPU kernel and no JAX model: latent attention is the port's alone
+        ("mla_decode", "none (no latent attention in src/repro)", timing_mla,
+         mla_replay["replayed"]),
     ):
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{sources.get(name, name)}.cu",
-            "replaces": replaces,
-            "launches": n,
-            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")},
-        })
+        kernels.append(_kernel_row(name, replaces, rec, n))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

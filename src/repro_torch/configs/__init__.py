@@ -8,7 +8,15 @@ holds the paper's worked examples (Tables I/II, Examples 1-3).
 
 from __future__ import annotations
 
-from .base import ARCH_REGISTRY, ModelConfig, MoESpec, get_arch, list_archs, register_arch
+from .base import (
+    ARCH_REGISTRY,
+    PORT_ONLY_ARCHS,
+    ModelConfig,
+    MoESpec,
+    get_arch,
+    list_archs,
+    register_arch,
+)
 from .shapes import SHAPES, InputShape, get_shape
 
 # Import for registration side effects.
@@ -23,10 +31,12 @@ from . import (  # noqa: F401  isort: skip
     smollm_135m,
     qwen2_vl_2b,
     recurrentgemma_2b,
+    moonlight_16b_a3b,
 )
 
 __all__ = [
     "ARCH_REGISTRY",
+    "PORT_ONLY_ARCHS",
     "ModelConfig",
     "MoESpec",
     "get_arch",

@@ -19,7 +19,13 @@ __all__ = [
     "register_arch",
     "get_arch",
     "list_archs",
+    "PORT_ONLY_ARCHS",
 ]
+
+# Archs registered in this package alone (the JAX package has no latent
+# attention): serving only; the dry-run, sharding presets and training
+# refuse them.
+PORT_ONLY_ARCHS = ("moonlight-16b-a3b",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +35,23 @@ class MoESpec:
     # capacity factor for expert dispatch buffers (tokens per expert =
     # tokens * top_k / n_experts * capacity)
     capacity: float = 1.25
+    # --- DeepSeek's router (port-only; the defaults are the softmax router) ---
+    n_shared: int = 0  # shared experts, run as one SwiGLU n_shared * d_ff wide on every token
+    scoring: str = "softmax"  # softmax | sigmoid
+    correction_bias: bool = False  # noaux_tc: the top k chosen by score + a per-expert bias
+    norm_topk: bool = True  # the top-k weights normalised to sum 1 (the softmax router always is)
+    routed_scale: float = 1.0  # routed_scaling_factor on the top-k weights
+    dropless: bool = False  # every routed pair runs (no capacity): ``layers.dropless_moe``
+
+    def __post_init__(self) -> None:
+        if self.scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown MoE scoring {self.scoring!r}")
+        unscaled = self.routed_scale == 1.0  # repro-lint: ignore[P201]  # 1.0 is the default given exactly; any other value is a scale
+        plain = (self.scoring == "softmax" and not self.correction_bias and self.norm_topk
+                 and unscaled and self.n_shared == 0)
+        if not self.dropless and not plain:
+            raise ValueError("the capacity router is softmax top-k alone: DeepSeek's router, "
+                             "bias, scale and shared experts run on the dropless path")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +83,14 @@ class ModelConfig:
     rope: str = "rope"  # rope | mrope | none
     rope_theta: float = 10000.0
     mrope_sections: tuple[int, ...] = (16, 24, 24)  # qwen2-vl t/h/w split
+    # --- latent attention (MLA, DeepSeek-V2/V3; port-only, 0 = off) ---
+    kv_lora_rank: int = 0  # the cached latent's width
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0  # the rotated part of q and the shared rope key
+    v_head_dim: int = 0
+    # --- leading dense layers before the MoE layers (port-only) ---
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
     # --- encoder-decoder ---
     enc_layers: int = 0
     # --- modality frontend (STUB per assignment: precomputed embeddings) ---
@@ -81,6 +112,13 @@ class ModelConfig:
             raise ValueError(f"unknown family {self.family}")
         if self.family == "moe" and self.moe is None:
             raise ValueError("moe family requires MoESpec")
+        if self.mla and self.family != "moe":
+            raise ValueError("latent attention is built for the moe family")
+
+    @property
+    def mla(self) -> bool:
+        """Latent attention (MLA) in place of GQA."""
+        return self.kv_lora_rank > 0
 
     @property
     def resolved_head_dim(self) -> int:
@@ -98,7 +136,11 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
     def param_count(self) -> int:
-        """Analytic parameter count (embeddings + blocks), for 6ND FLOPs."""
+        """Analytic parameter count (embeddings + blocks), for 6ND FLOPs.
+        A latent-attention config counts every leaf of its tree, norms
+        included (its published total does)."""
+        if self.mla:
+            return self._mla_param_count(active=False)
         d, v = self.d_model, self.vocab
         emb = v * d * (1 if self.tie_embeddings else 2)
         per_layer = 0
@@ -139,8 +181,29 @@ class ModelConfig:
             return emb + self.enc_layers * per_layer + self.n_layers * per_layer_dec
         return emb + n_layers * per_layer
 
+    def _mla_param_count(self, *, active: bool) -> int:
+        """Every leaf of a latent-attention model's tree (``active``: of
+        the routed experts only the top k)."""
+        assert self.moe is not None
+        d, H, r = self.d_model, self.n_heads, self.kv_lora_rank
+        qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+        attn = (d * H * qk + d * (r + self.qk_rope_head_dim) + r
+                + r * H * (self.qk_nope_head_dim + self.v_head_dim) + H * self.v_head_dim * d)
+        norms = 2 * d
+        n_moe = self.n_layers - self.first_dense_layers
+        E, F = self.moe.n_experts, self.d_ff
+        routed = (self.moe.top_k if active else E) * 3 * d * F
+        moe = (d * E + routed + 3 * d * self.moe.n_shared * F
+               + (E if self.moe.correction_bias else 0))
+        dense = 3 * d * self.dense_d_ff
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2) + d  # and the final norm
+        return (emb + self.n_layers * (attn + norms) + self.first_dense_layers * dense
+                + n_moe * moe)
+
     def active_param_count(self) -> int:
         """Active params per token (MoE: only top-k experts)."""
+        if self.mla:
+            return self._mla_param_count(active=True)
         if self.family != "moe":
             return self.param_count()
         assert self.moe is not None
@@ -165,7 +228,11 @@ class ModelConfig:
         return ("attn",) * self.n_layers
 
     def reduced(self) -> "ModelConfig":
-        """Same-family tiny twin for CPU smoke tests."""
+        """Same-family tiny twin for CPU smoke tests.  A latent-attention
+        config keeps every mechanism at tiny widths: one dense layer, then
+        two MoE layers of 4 experts with a shared expert and its router."""
+        if self.mla:
+            return self._mla_reduced()
         kw: dict = dict(
             name=self.name + "-reduced",
             family=self.family,
@@ -199,6 +266,16 @@ class ModelConfig:
             source=self.source,
         )
         return ModelConfig(**kw)
+
+    def _mla_reduced(self) -> "ModelConfig":
+        assert self.moe is not None
+        moe = dataclasses.replace(self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
+                                  n_shared=min(self.moe.n_shared, 1))
+        return dataclasses.replace(
+            self, name=self.name + "-reduced", n_layers=3, d_model=64, n_heads=4, n_kv_heads=4,
+            d_ff=32, vocab=512, moe=moe, kv_lora_rank=32, qk_nope_head_dim=16,
+            qk_rope_head_dim=8, v_head_dim=16, first_dense_layers=1, dense_d_ff=96,
+            dtype="float32", remat="none")
 
 
 ARCH_REGISTRY: dict[str, ModelConfig] = {}

@@ -48,8 +48,13 @@ def cell_applicability(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
     ``long_500k`` needs a bounded decode state, so it runs only for the SSM
     and hybrid archs; a full-attention arch's 512k dense KV cache is the
     excluded quadratic case, recorded as an explicit skip.  No assigned
-    arch is encoder-only (seamless is enc-dec: its decoder decodes).
+    arch is encoder-only (seamless is enc-dec: its decoder decodes).  A
+    latent-attention arch (``PORT_ONLY_ARCHS``) serves on the card alone:
+    the dry-run, its sharding presets and training are out of its scope, so
+    none of its cells runs here.
     """
+    if getattr(cfg, "mla", False):  # the JAX package's configs have no such field
+        return False, "latent attention (port-only arch): served alone; no dry-run cell"
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         return False, "full-attention arch: 512k decode KV is quadratic-memory; skipped per assignment"
     return True, ""

@@ -3,7 +3,7 @@ launches that kernel names stand for.
 
 Each CUDA wrapper adds one to its count where it launches its kernel
 (``flash_attention_cuda.launches`` and ``.mma_launches``,
-``decode_attention_cuda.launches``,
+``decode_attention_cuda.launches``, ``mla_decode_cuda.launches``,
 ``ssd_scan_cuda.launches`` and ``.mma_launches``,
 ``rglru_scan_cuda.launches``, the two sweeps' ``launches``), and nowhere
 else.  A CUDA graph that replays a captured step launches its kernels with
@@ -23,6 +23,7 @@ from typing import Iterable
 
 from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda
+from .mla_decode import mla_decode_cuda
 from .placement_step import placement_sweep_batch_cuda, placement_sweep_cuda
 from .rglru_scan import rglru_scan_cuda
 from .ssd_scan import ssd_scan_cuda
@@ -37,6 +38,7 @@ _COUNTERS = {
     "flash_attention": (flash_attention_cuda, "launches"),
     "flash_attention_mma": (flash_attention_cuda, "mma_launches"),
     "decode_attention": (decode_attention_cuda, "launches"),
+    "mla_decode": (mla_decode_cuda, "launches"),
     "ssd_scan": (ssd_scan_cuda, "launches"),
     "ssd_scan_mma": (ssd_scan_cuda, "mma_launches"),
     "rglru_scan": (rglru_scan_cuda, "launches"),
@@ -46,11 +48,12 @@ _COUNTERS = {
 def decode_launches(cfg, steps: int) -> dict[str, int]:
     """``steps`` decode steps' launches of a model of config ``cfg``: one
     decode attention a layer with a KV cache, two an enc-dec decoder layer
-    (self- and cross-attention); the ssm and hybrid families decode without
-    one."""
+    (self- and cross-attention), one latent decode a layer under latent
+    attention; the ssm and hybrid families decode without one."""
     n = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
          "encdec": 2 * cfg.n_layers}.get(cfg.family, 0)
-    return {"decode_attention": n * steps} if n and steps else {}
+    name = "mla_decode" if getattr(cfg, "mla", False) else "decode_attention"
+    return {name: n * steps} if n and steps else {}
 
 
 def read() -> dict[str, int]:
@@ -79,15 +82,16 @@ def delta(after: dict[str, int], before: dict[str, int]) -> dict[str, int]:
 
 # name -> the kernel symbols one launch of the wrapper runs one of, as a
 # profiler names them (the bf16 SSD scan runs four passes; its output pass,
-# which every call runs once, stands for the call; decode attention's split
-# kernel stands for a call, whose merge kernel runs when it has two splits
-# or more)
+# which every call runs once, stands for the call; decode attention's and
+# latent decode's split kernels stand for a call, whose merge kernel runs
+# when it has two splits or more)
 _SYMBOLS = {
     "placement_sweep": ("placement_sweep_kernel",),
     "placement_sweep_batch": ("placement_sweep_batch_kernel",),
     "flash_attention": ("flash_attention_kernel", "flash_attention_kernel_mma"),
     "flash_attention_mma": ("flash_attention_kernel_mma",),
     "decode_attention": ("decode_attention_kernel",),
+    "mla_decode": ("mla_decode_kernel", "mla_decode_mma_kernel"),
     "ssd_scan": ("ssd_scan_kernel", "ssd_out_kernel"),
     "ssd_scan_mma": ("ssd_out_kernel",),
     "rglru_scan": ("rglru_chunk_scan_kernel",),

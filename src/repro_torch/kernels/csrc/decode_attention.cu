@@ -57,6 +57,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "decode_split.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -65,6 +66,12 @@ using bf16 = __nv_bfloat16;
 using mma_bf16::cp_async_16;
 using mma_bf16::cp_async_commit;
 using mma_bf16::cp_async_wait;
+using decode_split::merge_splits;
+using decode_split::neg_inf;
+using decode_split::Pos;
+using decode_split::read_pos;
+using decode_split::rescale;
+using decode_split::Unit;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -75,46 +82,9 @@ constexpr int kMinBlocks = 3;    // blocks an SM the registers are budgeted for,
 constexpr int kMergeWarps = 4;   // the merge kernel's warps a block
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
-
-// exp(m_old - m_new), 0 for a state that has seen no key yet
-__device__ __forceinline__ float rescale(float m_old, float m_new) {
-  return m_old == neg_inf() ? 0.f : __expf(m_old - m_new);
-}
-
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-
-// A 16-byte unit of a row, widened to float32.
-template <typename T>
-struct Unit;
-
-template <>
-struct Unit<float> {
-  static constexpr int kElems = 4;
-  static __device__ __forceinline__ void widen(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  static __device__ __forceinline__ void store(float* o, float x) { *o = x; }
-};
-
-template <>
-struct Unit<bf16> {
-  static constexpr int kElems = 8;
-  static __device__ __forceinline__ void widen(const uint4& u, float* f) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ void store(bf16* o, float x) { *o = __float2bfloat16_rn(x); }
-};
 
 template <typename T, int HD, int G>
 struct Shape {
@@ -146,19 +116,6 @@ struct Shape {
   static_assert((kTile * kUnits) % kThreads == 0, "a tile's copies must split evenly");
   static_assert(kStages >= 2, "the next tile loads while this one is read");
 };
-
-// A position: read from the device when `ptr` is set, else `val`.
-struct Pos {
-  const void* ptr;
-  long long val;
-  int is64;
-};
-
-__device__ __forceinline__ long long read_pos(const Pos& p) {
-  if (p.ptr == nullptr) return p.val;
-  return p.is64 ? *static_cast<const long long*>(p.ptr)
-                : static_cast<long long>(*static_cast<const int*>(p.ptr));
-}
 
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads, G <= 6 ? kMinBlocks : 2)
@@ -441,32 +398,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(32 * kMergeWarps)
 decode_attention_merge_kernel(const float* __restrict__ part, T* __restrict__ o, int BH,
                               int splits) {
-  constexpr int kPer = (HD + 31) / 32;
   const int bh = blockIdx.x * kMergeWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (bh >= BH) return;
-  const size_t row = static_cast<size_t>(HD + 2);
-  const float* p = part + static_cast<size_t>(bh) * splits * row;
-  float M = neg_inf();
-  for (int s = 0; s < splits; ++s) M = fmaxf(M, p[s * row + HD]);
-  float L = 0.f, acc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float* ps = p + s * row;
-    const float f = rescale(ps[HD], M);
-    L += ps[HD + 1] * f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) acc[i] += ps[d] * f;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int d = lane + 32 * i;
-    if (d < HD) Unit<T>::store(o + static_cast<size_t>(bh) * HD + d, acc[i] / fmaxf(L, 1e-30f));
-  }
+  if (bh < BH) merge_splits<T, HD>(part, o, bh, splits, splits, threadIdx.x % 32);
 }
 
 struct Args {

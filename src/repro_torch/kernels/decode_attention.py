@@ -153,9 +153,11 @@ def decode_attention_cuda(
     causal: bool = True,
     window: int = 0,
     p_dtype: str = "float32",
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Attention of q (B, 1, H, hd) against k, v (B, T, K, hd), launched on
-    the current stream; does not synchronise.
+    the current stream; does not synchronise.  Scores are scaled by
+    ``scale``, 1 / sqrt(hd) if None.
 
     q, k and v are contiguous, 16-byte aligned CUDA tensors of one type,
     float32 or bfloat16, with a head dim in ``HEAD_DIMS``; ``kv_len`` None
@@ -188,7 +190,8 @@ def decode_attention_cuda(
             None if part is None else part.data_ptr(),
             _DTYPES[q.dtype], B, T, H, K, hd, plan.heads, plan.chunks, plan.split_keys,
             plan.splits, off_ptr, off, off64, len_ptr, length, len64, int(bool(causal)),
-            int(window), 1.0 / math.sqrt(hd), _P_DTYPES[p_dtype], plan.tile, plan.smem)
+            int(window), 1.0 / math.sqrt(hd) if scale is None else float(scale),
+            _P_DTYPES[p_dtype], plan.tile, plan.smem)
     _build.launch("decode_attention", "decode_attention_fwd", _ARGTYPES, args, q.device)
     decode_attention_cuda.launches += 1
     return out

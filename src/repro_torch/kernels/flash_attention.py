@@ -109,13 +109,14 @@ def flash_attention_plain(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """The same attention as a masked softmax at float32, on the inputs'
     device.  A row with no visible key averages every value (a softmax over
     -1e30), where the kernel averages the values of the tiles it visited;
     a causal prefill has no such row."""
     _check(q, k, v)
-    return attention_ref(q, k, v, q_offset=q_offset, causal=causal, window=window)
+    return attention_ref(q, k, v, q_offset=q_offset, causal=causal, window=window, scale=scale)
 
 
 def flash_attention_cuda(
@@ -126,6 +127,7 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Launch a CUDA kernel on the current stream; does not synchronise.
 
@@ -134,7 +136,8 @@ def flash_attention_cuda(
     float32 the CUDA-core one.  ``flash_attention_cuda.launches`` counts
     the launches of either, ``flash_attention_cuda.mma_launches`` those of
     the tensor-core kernel (an empty ``B * H * S`` returns an empty output
-    and launches nothing; ``T == 0`` raises).  The kernel has no backward:
+    and launches nothing; ``T == 0`` raises).  Scores are scaled by
+    ``scale``, 1 / sqrt(hd) if None.  The kernel has no backward:
     under grad mode, inputs that require grad raise.
     """
     _build.check_no_grad("flash_attention_cuda", q=q, k=k, v=v)
@@ -162,7 +165,8 @@ def flash_attention_cuda(
     if B * H * S == 0:
         return out  # a grid of zero blocks is a launch error
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, K, hd,
-              int(q_offset), int(bool(causal)), int(window), 1.0 / math.sqrt(hd))
+              int(q_offset), int(bool(causal)), int(window),
+              1.0 / math.sqrt(hd) if scale is None else float(scale))
     if mma:
         _build.launch("flash_attention_mma", "flash_attention_mma_fwd", _MMA_ARGTYPES,
                       (*common, plan.rows, plan.kv_tile, plan.smem), q.device)

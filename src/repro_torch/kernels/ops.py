@@ -14,6 +14,7 @@ import torch
 
 from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .mla_decode import mla_decode_cuda, mla_decode_plain
 from .placement_step import (
     placement_sweep_batch_cuda,
     placement_sweep_batch_plain,
@@ -23,7 +24,8 @@ from .placement_step import (
 from .rglru_scan import rglru_scan_cuda, rglru_scan_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
-__all__ = ["flash_attention", "ssd_scan", "rglru_scan", "placement_sweep", "placement_sweep_batch"]
+__all__ = ["flash_attention", "mla_decode", "ssd_scan", "rglru_scan", "placement_sweep",
+           "placement_sweep_batch"]
 
 
 def _pick(t: torch.Tensor, plain, kernel, name: str):
@@ -87,8 +89,10 @@ def flash_attention(
     kv_chunk: int = 1024,
     unroll_causal: bool = False,
     p_dtype: str = "float32",
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """GQA attention of q (B, S, H, hd) against k, v (B, T, K, hd).
+    """GQA attention of q (B, S, H, hd) against k, v (B, T, K, hd), scores
+    scaled by ``scale`` (1 / sqrt(hd) if None).
 
     The flash kernel covers the full-sequence cases (train, prefill).
     Decode (S == 1) on a CUDA tensor runs the decode kernel
@@ -106,15 +110,27 @@ def flash_attention(
     if S == 1 and q.device.type == "cuda":
         q, k, v = (t.contiguous() for t in (q, k, v))  # the kernel reads dense rows
         return decode_attention_cuda(q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal,
-                                     window=window, p_dtype=p_dtype)
+                                     window=window, p_dtype=p_dtype, scale=scale)
     if S == 1 or kv_len is not None or not isinstance(q_offset, int):
         return chunked_attention(
             q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal, window=window,
             kv_chunk=min(kv_chunk, k.shape[1]), unroll_causal=unroll_causal, p_dtype=p_dtype,
+            scale=scale,
         )
     fn = _pick(q, flash_attention_plain, flash_attention_cuda, "flash_attention")
     q, k, v = (t.contiguous() for t in (q, k, v))  # the kernel reads dense rows
-    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset, scale=scale)
+
+
+def mla_decode(q: torch.Tensor, ckv: torch.Tensor, kr: torch.Tensor, *,
+               kv_len: int | torch.Tensor, scale: float) -> torch.Tensor:
+    """Latent attention's absorbed decode: q (B, H, r + rope) against the
+    latent cache ckv (B, T, r), also the value, and the rope keys kr
+    (B, T, rope); returns (B, H, r).  A CUDA tensor runs kernel 7
+    (``mla_decode_cuda``, ``kv_len`` a tensor read on the device), a CPU
+    tensor ``mla_decode_plain``."""
+    fn = _pick(q, mla_decode_plain, mla_decode_cuda, "mla_decode")
+    return fn(q, ckv, kr, kv_len=kv_len, scale=scale)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = False):

@@ -41,12 +41,15 @@ def attention_ref(
     kv_len: int | torch.Tensor | None = None,
     causal: bool = True,
     window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """Exact attention oracle.  q: (B,S,H,hd), k/v: (B,T,K,hd)."""
+    """Exact attention oracle.  q: (B,S,H,hd), k/v: (B,T,K,hd); scores
+    scaled by ``scale`` (1 / sqrt(hd) if None)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     g = H // K
-    qf = reshape(q.float(), B, S, K, g, hd) / math.sqrt(hd)
+    qf = reshape(q.float(), B, S, K, g, hd)
+    qf = qf / math.sqrt(hd) if scale is None else qf * scale
     s = einsum("bskgd,btkd->bkgst", qf, k.float())
     qpos = q_offset + torch.arange(S, device=q.device)
     kpos = torch.arange(T, device=q.device)

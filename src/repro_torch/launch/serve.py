@@ -89,7 +89,8 @@ def main(argv=None) -> int:
         with trace.enabled():
             engine.generate(batch, args.new_tokens,
                             generator=torch.Generator(model.device).manual_seed(args.seed))
-        print("counters:", " ".join(f"{k}={v:g}" for k, v in sorted(trace.snapshot().items())))
+        print("counters:", " ".join(f"{k}={v:g}" if isinstance(v, (int, float)) else f"{k}={v}"
+                                    for k, v in sorted(trace.snapshot().items())))
         print("launches (wrappers):",
               " ".join(f"{k}={n}" for k, n in counts.read().items() if n) or "none")
         for name, step in (("prefill", engine._prefill), ("decode", engine._decode)):

@@ -182,7 +182,11 @@ class Model(nn.Module):
         """Next-token CE of ``logits[:, :-1]`` against ``labels[:, 1:]`` plus
         ``moe_aux_coef`` x the MoE load-balance loss; returns (loss, {"ce",
         "aux"}).  Runs with grad (the caller's mode): on ``attn_impl="xla"``
-        every op is differentiable."""
+        every op is differentiable.  Latent attention has no training path
+        (it serves alone): it raises."""
+        if getattr(self.cfg, "mla", False):
+            raise NotImplementedError(f"{self.cfg.name}: latent attention serves alone; "
+                                      "training it is out of this port's scope")
         logits, aux = self._full(params, batch)
         ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
         return ce + self.ex.moe_aux_coef * aux, {"ce": ce, "aux": aux}

@@ -20,7 +20,24 @@ products and biases, RoPE or M-RoPE), ``attn.core`` (the cache write and
 the attention), ``attn.out`` (the output product and the residual) and
 ``mlp`` (``ln2``, the MLP or MoE layer and the residual); once a step
 ``embed`` (the embeddings, a vision batch's patch prefix, the positions)
-and ``head`` (the final norm and the head product).
+and ``head`` (the final norm and the head product).  A dropless MoE layer
+names its parts inside ``mlp``: ``moe.route`` (the router, its scores,
+top k and weights, and with tracing on the per-expert pair count
+``moe.pairs``), ``moe.experts`` (the routed experts, dispatch to combine)
+and ``moe.shared`` (the shared experts and their sum).
+
+Latent attention (MLA, DeepSeek-V2/V3; ``cfg.mla``) replaces GQA where a
+config sets ``kv_lora_rank``: q = W_q h (nope ‖ rope parts a head); the
+latent c and the shared rope key from W_kv_a h, c through its own RMSNorm,
+RoPE on the rope parts alone, scores scaled by 1 / sqrt(nope + rope).  The
+prefill expands c through W_k_b and W_v_b into each head's k_nope and v
+and runs the flash kernel; the cache holds (c, rotated rope key) a token,
+``(L, B, T, 1, r)`` and ``(L, B, T, 1, rope)``, and the decode runs in the
+absorbed form: q_nope W_k_b^T is a latent query, the latent decode kernel
+(``ops.mla_decode``) scores (latent ‖ rope) rows and sums latent rows, and
+the result goes through W_v_b, then W_o.  A config with
+``first_dense_layers`` keeps those layers in a stack of their own,
+``dense_blocks`` (an MLP ``dense_d_ff`` wide), before ``blocks``.
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
@@ -39,6 +57,8 @@ from torch.utils.checkpoint import (
 from .. import trace
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..kernels.flash_attention import HEAD_DIMS
+from ..kernels.mla_decode import mla_decode_plain
 from ..sharding.ctx import (
     bind_ctx,
     einsum,
@@ -53,9 +73,11 @@ from .layers import (
     apply_rope,
     chunked_attention,
     decode_positions,
+    dropless_moe,
     moe_aux_loss,
     moe_layer,
     rms_norm,
+    route_topk,
     swiglu,
 )
 from .params import ParamSpec
@@ -161,6 +183,17 @@ class ExecConfig:
 # ---------------------------------------------------------------------------
 
 
+# The port-only fields (latent attention, leading dense layers, DeepSeek's
+# router) read with their defaults: these functions also take the JAX
+# package's configs, which lack them (the CPU parity tests pass those).
+def _is_mla(cfg) -> bool:
+    return getattr(cfg, "kv_lora_rank", 0) > 0
+
+
+def _moe_field(cfg, name: str, default=0):
+    return getattr(cfg.moe, name, default)
+
+
 def attn_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
     D, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
@@ -177,8 +210,22 @@ def attn_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
     return s
 
 
-def mlp_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
-    D, F = cfg.d_model, cfg.d_ff
+def mla_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
+    """Latent attention's leaves (``q_lora_rank`` null: q straight from h)."""
+    D, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": ParamSpec((L, D, H, nope + rope), ("layers", "embed", "heads", None)),
+        "wkv_a": ParamSpec((L, D, r + rope), ("layers", "embed", None)),
+        "kv_norm": ParamSpec((L, r), ("layers", None), init="zeros"),
+        "wk_b": ParamSpec((L, r, H, nope), ("layers", None, "heads", None)),
+        "wv_b": ParamSpec((L, r, H, vd), ("layers", None, "heads", None)),
+        "wo": ParamSpec((L, H, vd, D), ("layers", "heads", None, "embed")),
+    }
+
+
+def mlp_specs(cfg: ModelConfig, L: int, F: int | None = None) -> dict[str, ParamSpec]:
+    D, F = cfg.d_model, F or cfg.d_ff
     return {
         "w_gate": ParamSpec((L, D, F), ("layers", "embed", "mlp")),
         "w_up": ParamSpec((L, D, F), ("layers", "embed", "mlp")),
@@ -189,25 +236,40 @@ def mlp_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
 def moe_specs(cfg: ModelConfig, L: int) -> dict[str, ParamSpec]:
     assert cfg.moe is not None
     D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
-    return {
+    s: dict[str, Any] = {
         "router": ParamSpec((L, D, E), ("layers", "embed", None)),
         "w_gate": ParamSpec((L, E, D, F), ("layers", "expert", "embed", None)),
         "w_up": ParamSpec((L, E, D, F), ("layers", "expert", "embed", None)),
         "w_down": ParamSpec((L, E, F, D), ("layers", "expert", None, "embed")),
     }
+    if _moe_field(cfg, "correction_bias", False):
+        s["bias"] = ParamSpec((L, E), ("layers", None), init="zeros")
+    if _moe_field(cfg, "n_shared"):
+        s["shared"] = mlp_specs(cfg, L, cfg.moe.n_shared * F)
+    return s
 
 
-def block_specs(cfg: ModelConfig, L: int) -> dict[str, Any]:
+def block_specs(cfg: ModelConfig, L: int, *, dense: bool = False) -> dict[str, Any]:
+    """``L`` stacked blocks; ``dense``: the leading dense layers' (an MLP
+    ``dense_d_ff`` wide in a MoE model)."""
     s: dict[str, Any] = {
         "ln1": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="zeros"),
         "ln2": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="zeros"),
-        "attn": attn_specs(cfg, L),
+        "attn": mla_specs(cfg, L) if _is_mla(cfg) else attn_specs(cfg, L),
     }
-    if cfg.family == "moe":
+    if dense:
+        s["mlp"] = mlp_specs(cfg, L, cfg.dense_d_ff)
+    elif cfg.family == "moe":
         s["moe"] = moe_specs(cfg, L)
     else:
         s["mlp"] = mlp_specs(cfg, L)
     return s
+
+
+def _groups(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """The stacks of blocks in layer order: (tree key, layers)."""
+    n = getattr(cfg, "first_dense_layers", 0)
+    return [("dense_blocks", n)] * (n > 0) + [("blocks", cfg.n_layers - n)]
 
 
 def lm_specs(cfg: ModelConfig) -> dict[str, Any]:
@@ -215,8 +277,9 @@ def lm_specs(cfg: ModelConfig) -> dict[str, Any]:
     s: dict[str, Any] = {
         "embed": ParamSpec((V, D), ("vocab", "embed"), init="embed"),
         "final_ln": ParamSpec((D,), ("embed",), init="zeros"),
-        "blocks": block_specs(cfg, cfg.n_layers),
     }
+    for key, n in _groups(cfg):
+        s[key] = block_specs(cfg, n, dense=key == "dense_blocks")
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
     return s
@@ -225,6 +288,13 @@ def lm_specs(cfg: ModelConfig) -> dict[str, Any]:
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
+
+
+def _layers(cfg: ModelConfig, params: dict):
+    """Each layer's parameters (``_layer``), in order over the stacks."""
+    for key, n in _groups(cfg):
+        for i in range(n):
+            yield _layer(params[key], i)
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -281,18 +351,32 @@ def _attend(ex: ExecConfig, q, k, v, *, cache, cache_idx):
     return _cached_attention(ex, q, ck, cv, cache_idx), (ck, cv)
 
 
-def _attn_dispatch(ex: ExecConfig, q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+def _attn_dispatch(ex: ExecConfig, q, k, v, *, causal: bool, window: int,
+                   scale: float | None = None) -> torch.Tensor:
     """Full-sequence attention (q from position 0 against every key) on
     ``ex.attn_impl``'s route; one query scores all T keys at once, as the
-    JAX package's decode does."""
+    JAX package's decode does.  ``scale`` None: 1 / sqrt(hd)."""
     S, T = q.shape[1], k.shape[1]
     chunk = T if S == 1 else min(ex.kv_chunk, T)
     if ex.attn_impl == "pallas":
         return ops.flash_attention(q, k, v, q_offset=0, causal=causal, window=window,
-                                   kv_chunk=chunk, p_dtype=ex.attn_p_dtype)
+                                   kv_chunk=chunk, p_dtype=ex.attn_p_dtype, scale=scale)
     # no chunk here lies past the last query (ex.unroll_causal: nothing to skip)
     return chunked_attention(q, k, v, q_offset=0, causal=causal, window=window, kv_chunk=chunk,
-                             p_dtype=ex.attn_p_dtype)
+                             p_dtype=ex.attn_p_dtype, scale=scale)
+
+
+def _padded_attention(ex: ExecConfig, q, k, v, scale: float) -> torch.Tensor:
+    """Causal attention of q, k (B, S, H, dk) and v (B, S, H, dv) of other
+    widths (latent attention's 192 and 128): all three zero-padded to the
+    smallest head width the flash kernel is built for that holds both
+    (256), and the output's pad columns dropped.  Exact: a zero column adds
+    nothing to a score and gives a zero output column.  It costs the
+    kernel 256 / 192 of the score products and 2x the value products."""
+    dv = v.shape[-1]
+    hd = next(w for w in HEAD_DIMS if w >= max(q.shape[-1], dv))
+    q, k, v = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
+    return _attn_dispatch(ex, q, k, v, causal=True, window=0, scale=scale)[..., :dv]
 
 
 def _cached_attention(ex: ExecConfig, q, ck, cv, cache_idx) -> torch.Tensor:
@@ -310,33 +394,111 @@ def _cached_attention(ex: ExecConfig, q, ck, cv, cache_idx) -> torch.Tensor:
     )
 
 
+def _mla(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, cache_idx):
+    """Latent attention and its residual (see the module's docstring), in
+    the spans ``attn.qkv`` (ln1, the q and kv_a products, the latent's norm,
+    RoPE; the prefill's expansion of c into k_nope and v, the decode's
+    absorbed query q_nope W_k_b^T), ``attn.core`` (the cache write and the
+    attention; the decode's on ``ex.attn_impl``'s route, kernel 7 through
+    ``ops.mla_decode`` or ``mla_decode_plain``) and ``attn.out`` (the decode's W_v_b, W_o, the residual).
+    Returns (h, cache: (c, rope key) each ``(B, T, 1, width)``, the last
+    span)."""
+    if cache is not None and ex.attn_p_dtype != "float32":
+        raise NotImplementedError(f"attn_p_dtype {ex.attn_p_dtype!r}: latent decode attention "
+                                  "runs p in float32 on either route")
+    dev, a = h.device, p["attn"]
+    r, nope = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    scale = (nope + cfg.qk_rope_head_dim) ** -0.5
+    with trace.span("attn.qkv", dev) as part:
+        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+        dt = hn.dtype
+        q = einsum("bsd,dhk->bshk", hn, a["wq"].to(dt))
+        q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], pos, cfg.rope_theta)
+        kv = einsum("bsd,dk->bsk", hn, a["wkv_a"].to(dt))
+        c = rms_norm(kv[..., :r], a["kv_norm"], cfg.norm_eps)[:, :, None]  # (B, S, 1, r)
+        kr = apply_rope(kv[:, :, None, r:], pos, cfg.rope_theta)  # (B, S, 1, rope)
+        if cache is None:  # each head's q, k (nope ‖ rope) and v
+            q = torch.cat([q_nope, q_rope], dim=-1)
+            k = torch.cat([einsum("bsr,rhn->bshn", c[:, :, 0], a["wk_b"].to(dt)),
+                           kr.expand(-1, -1, cfg.n_heads, -1)], dim=-1)
+            v = einsum("bsr,rhv->bshv", c[:, :, 0], a["wv_b"].to(dt))
+        else:  # the absorbed query (B, H, r + rope)
+            q = torch.cat([einsum("bhn,rhn->bhr", q_nope[:, 0], a["wk_b"].to(dt)),
+                           q_rope[:, 0]], dim=-1)
+        del hn, q_nope, q_rope, kv
+    with trace.span("attn.core", dev, after=part) as part:
+        if cache is None:
+            out = _padded_attention(ex, q, k, v, scale)
+            new_cache = (c, kr)
+            del k, v
+        else:
+            cc, ck = new_cache = cache
+            write_slice(cc, c.to(cc.dtype), cache_idx)
+            write_slice(ck, kr.to(ck.dtype), cache_idx)
+            attend = ops.mla_decode if ex.attn_impl == "pallas" else mla_decode_plain
+            o_lat = attend(q, cc[:, :, 0], ck[:, :, 0], kv_len=cache_idx + 1, scale=scale)
+        del q
+    with trace.span("attn.out", dev, after=part) as part:
+        if cache is not None:
+            out = einsum("bhr,rhv->bhv", o_lat, a["wv_b"].to(dt))[:, None]
+        h = h + einsum("bshv,hvd->bsd", out, a["wo"].to(dt))
+    return h, new_cache, part
+
+
+def _moe(cfg: ModelConfig, m: dict, hn) -> torch.Tensor:
+    """A dropless MoE layer (``layers.route_topk``, ``layers.dropless_moe``)
+    and its shared experts, in the spans ``moe.route``, ``moe.experts`` and
+    ``moe.shared``; with tracing on ``moe.pairs`` counts each expert's
+    routed pairs on the device."""
+    spec, dev = cfg.moe, hn.device
+    B, S, D = hn.shape
+    x = hn.reshape(B * S, D)
+    with trace.span("moe.route", dev) as part:
+        idx, w = route_topk(x, m["router"], m.get("bias"), top_k=spec.top_k,
+                            scoring=spec.scoring, norm_topk=spec.norm_topk,
+                            scale=spec.routed_scale)
+        trace.tally("moe.pairs", idx, spec.n_experts)
+    with trace.span("moe.experts", dev, after=part) as part:
+        y = dropless_moe(x, idx, w, m["w_gate"], m["w_up"], m["w_down"]).reshape(B, S, D)
+    if "shared" in m:
+        with trace.span("moe.shared", dev, after=part):
+            sh = m["shared"]
+            y = y + swiglu(hn, sh["w_gate"], sh["w_up"], sh["w_down"])
+    return y
+
+
 def _block_apply(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, cache_idx):
     """One block.  Returns (h, router probs or None, cache)."""
     dev = h.device
-    with trace.span("attn.qkv", dev) as part:
-        h = shard(h, "batch", "act_seq", None)
-        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, ex, p["attn"], hn, pos, cached=cache is not None)
-    with trace.span("attn.core", dev, after=part) as part:
-        out, new_cache = _attend(ex, q, k, v, cache=cache, cache_idx=cache_idx)
-    with trace.span("attn.out", dev, after=part) as part:
-        attn_out = einsum("bshk,hkd->bsd", out, p["attn"]["wo"].to(hn.dtype))
-        # freed here, as the attention's own temporaries were: a captured
-        # prefill's pool holds the same blocks with tracing on or off
-        del q, k, v, out
-        h = h + attn_out
+    if _is_mla(cfg):
+        h, new_cache, part = _mla(cfg, ex, p, h, pos, cache=cache, cache_idx=cache_idx)
+    else:
+        with trace.span("attn.qkv", dev) as part:
+            h = shard(h, "batch", "act_seq", None)
+            hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+            q, k, v = _qkv(cfg, ex, p["attn"], hn, pos, cached=cache is not None)
+        with trace.span("attn.core", dev, after=part) as part:
+            out, new_cache = _attend(ex, q, k, v, cache=cache, cache_idx=cache_idx)
+        with trace.span("attn.out", dev, after=part) as part:
+            attn_out = einsum("bshk,hkd->bsd", out, p["attn"]["wo"].to(hn.dtype))
+            # freed here, as the attention's own temporaries were: a captured
+            # prefill's pool holds the same blocks with tracing on or off
+            del q, k, v, out
+            h = h + attn_out
     with trace.span("mlp", dev, after=part):
         h = shard(h, "batch", "act_seq", None)
         hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
         probs = None
-        if cfg.family == "moe":
+        if "mlp" in p:
+            m = p["mlp"]
+            y = swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
+        elif _moe_field(cfg, "dropless", False):
+            y = _moe(cfg, p["moe"], hn2)
+        else:
             m = p["moe"]
             y, probs = moe_layer(hn2, m["router"], m["w_gate"], m["w_up"], m["w_down"],
                                  top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity,
                                  impl=ex.moe_impl)
-        else:
-            m = p["mlp"]
-            y = swiglu(hn2, m["w_gate"], m["w_up"], m["w_down"])
         h = shard(h + y, "batch", "act_seq", None)
     return h, probs, new_cache
 
@@ -389,9 +551,8 @@ def lm_forward(
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
     block = ex.remat_wrap(_block_apply)
-    for i in range(cfg.n_layers):
-        h, probs, (k, v) = block(cfg, ex, _layer(params["blocks"], i), h, pos,
-                                 cache=None, cache_idx=None)
+    for p in _layers(cfg, params):
+        h, probs, (k, v) = block(cfg, ex, p, h, pos, cache=None, cache_idx=None)
         if probs is not None:
             aux = aux + moe_aux_loss(probs, cfg.moe.top_k)
         if return_cache:
@@ -405,10 +566,16 @@ def lm_forward(
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None, device=None):
-    """Zero KV cache, stacked over layers: (L, B, T, K, hd) x2."""
+    """Zero KV cache, stacked over layers: (L, B, T, K, hd) x2; under latent
+    attention the latent and the rope key, (L, B, T, 1, r) and
+    (L, B, T, 1, rope)."""
     dt = dtype or getattr(torch, cfg.dtype)
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return (torch.zeros(shape, dtype=dt, device=device), torch.zeros(shape, dtype=dt, device=device))
+    lead = (cfg.n_layers, batch_size, max_len)
+    if _is_mla(cfg):
+        widths = ((1, cfg.kv_lora_rank), (1, cfg.qk_rope_head_dim))
+    else:
+        widths = ((cfg.n_kv_heads, cfg.resolved_head_dim),) * 2
+    return tuple(torch.zeros((*lead, *w), dtype=dt, device=device) for w in widths)
 
 
 def abstract_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None):
@@ -433,9 +600,9 @@ def lm_decode_step(
         h = _embed(cfg, params, tokens[:, None])  # (B,1,D)
         shape = (B, 1, 3) if cfg.rope == "mrope" else (B, 1)  # M-RoPE: t = h = w = idx
         pos = decode_positions(idx, shape, h.device)
-    for i in range(cfg.n_layers):
-        h, _, _ = _block_apply(cfg, ex, _layer(params["blocks"], i), h, pos,
-                            cache=(cache[0][i], cache[1][i]), cache_idx=idx)
+    for i, p in enumerate(_layers(cfg, params)):
+        h, _, _ = _block_apply(cfg, ex, p, h, pos, cache=(cache[0][i], cache[1][i]),
+                               cache_idx=idx)
     with trace.span("head", h.device):
         logits = _logits(cfg, params, h)[:, 0]
     return logits, cache

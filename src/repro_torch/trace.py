@@ -38,8 +38,17 @@ for the replay before last while the card runs the last one.
 
 Counters are host numbers, read by ``snapshot()``: the graphs' captures,
 their ms and replays (read from every live ``CudaGraphStep``, whose own
-record they are), and the kernels built from source in this process
-(``count``, from ``kernels._build``).
+record they are), the wrappers' launches those replays stood for
+(``launches.<name>``, read from each graph's kernel nodes), and the kernels
+built from source in this process (``count``, from ``kernels._build``).
+A tally (``tally``) counts on the device: with tracing on, each value of
+an index tensor (a MoE layer's routed experts, ``moe.pairs``) is added to
+a counter tensor in place, inside a captured step's graph as in eager
+work; ``snapshot`` reads it, with its max and mean, and ``reset`` zeroes it.
+The counters are slices of one buffer a device (``_TALLY_SLOTS`` entries),
+made outside any capture: by ``enabled()`` on the current CUDA device. A
+tensor made inside a capture would come from the graph pool, whose other
+graphs' replays may write over it.
 """
 
 from __future__ import annotations
@@ -52,9 +61,10 @@ from typing import Any, Iterator
 import torch
 
 __all__ = ["capturing", "count", "enabled", "flush", "is_on", "records", "replayed", "reset",
-           "snapshot", "span", "spans", "watch"]
+           "snapshot", "span", "spans", "tally", "watch"]
 
 _NULL = contextlib.nullcontext()
+_TALLY_SLOTS = 4096  # int64 tally entries a device
 
 
 class _State:
@@ -68,6 +78,8 @@ class _State:
         self.unread: list[tuple[list, list]] = []  # (a graph's events, where they go)
         self.sink: list | None = None  # the events of the capture in progress
         self.counters: dict[str, float] = {}
+        self.tallies: dict[str, torch.Tensor] = {}  # device counters (``tally``)
+        self.slots: dict[torch.device, tuple[torch.Tensor, int]] = {}  # (buffer, slots used)
         self.graphs: weakref.WeakSet = weakref.WeakSet()
 
 
@@ -82,6 +94,8 @@ def is_on() -> bool:
 def enabled() -> Iterator[None]:
     """Tracing on for the block (and back to what it was after)."""
     was, _S.on = _S.on, True
+    if torch.cuda.is_available():
+        _slots(torch.device("cuda", torch.cuda.current_device()))
     try:
         yield
     finally:
@@ -229,9 +243,41 @@ def spans() -> dict[str, list[float]]:
 
 
 def reset() -> None:
-    """Drop every record (the counters stay)."""
+    """Drop every record and zero the tallies (the counters stay)."""
     flush()
     _S.records.clear()
+    for acc in _S.tallies.values():
+        acc.zero_()
+
+
+def _slots(device: torch.device) -> tuple[torch.Tensor, int]:
+    """The device's tally buffer and the slots used, made zeroed on first
+    use (never inside a capture)."""
+    got = _S.slots.get(device)
+    if got is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"no tally buffer on {device}: enter trace.enabled() with it "
+                               "current, before any capture")
+        got = _S.slots[device] = (torch.zeros(_TALLY_SLOTS, dtype=torch.int64, device=device), 0)
+    return got
+
+
+def tally(name: str, index: torch.Tensor, size: int) -> None:
+    """With tracing on, add one to the tally ``name``, ``size`` int64
+    counters on ``index``'s device, at each value of ``index`` (ints below
+    ``size``), in place: under a stream capture the add is a node of the
+    graph, and each replay adds again."""
+    if not _S.on:
+        return
+    acc = _S.tallies.get(name)
+    if acc is None or acc.shape[0] != size or acc.device != index.device:
+        buf, used = _slots(index.device)
+        if used + size > _TALLY_SLOTS:
+            raise RuntimeError(f"tally {name!r}: {size} more slots than the {_TALLY_SLOTS} a device")
+        acc = _S.tallies[name] = buf[used : used + size]
+        _S.slots[index.device] = (buf, used + size)
+    flat = index.reshape(-1).long()
+    acc.index_add_(0, flat, torch.ones_like(flat))
 
 
 def count(name: str, n: float = 1) -> None:
@@ -245,12 +291,25 @@ def watch(step: Any) -> None:
     _S.graphs.add(step)
 
 
-def snapshot() -> dict[str, float]:
+def snapshot() -> dict[str, Any]:
     """The counters: ``graph.captures``, ``graph.capture_ms`` and
-    ``graph.replays`` over the live ``CudaGraphStep``s, and every ``count``
-    (``kernels.builds.<name>``, ``kernels.build_s``)."""
+    ``graph.replays`` over the live ``CudaGraphStep``s, and the wrappers'
+    launches their replays stood for (``launches.<name>``, their
+    ``replayed``); every ``count`` (``kernels.builds.<name>``,
+    ``kernels.build_s``); each tally as a list of ints, and its
+    ``<name>.max`` and ``<name>.mean`` (read from the device: a wait)."""
     graphs = list(_S.graphs)
     caps = [c for g in graphs for c in g.captures]
-    return {"graph.captures": len(caps), "graph.capture_ms": sum(c["ms"] for c in caps),
-            "graph.replays": sum(e.replays for g in graphs for e in g.graphs.values()),
-            **_S.counters}
+    out: dict[str, Any] = {
+        "graph.captures": len(caps), "graph.capture_ms": sum(c["ms"] for c in caps),
+        "graph.replays": sum(e.replays for g in graphs for e in g.graphs.values())}
+    for g in graphs:
+        for name, n in getattr(g, "replayed", {}).items():
+            out[f"launches.{name}"] = out.get(f"launches.{name}", 0) + n
+    out.update(_S.counters)
+    for name, acc in sorted(_S.tallies.items()):
+        got = acc.tolist()
+        out[name] = got
+        out[f"{name}.max"] = max(got)
+        out[f"{name}.mean"] = sum(got) / len(got)
+    return out

@@ -29,6 +29,7 @@ from repro.models import ExecConfig as RefExecConfig  # noqa: E402
 from repro.models import Model as RefModel  # noqa: E402
 from repro.models.params import map_specs as ref_map_specs  # noqa: E402
 from repro.models.params import param_count as ref_param_count  # noqa: E402
+from repro_torch.configs import PORT_ONLY_ARCHS, ModelConfig, MoESpec  # noqa: E402
 from repro_torch.configs import get_arch, list_archs  # noqa: E402
 from repro_torch.convert import params_from, state_from  # noqa: E402
 from repro_torch.models import Model, init_params, map_specs, param_count  # noqa: E402
@@ -157,12 +158,33 @@ def test_prefill_then_decode_matches_forward(pair):
         np.testing.assert_allclose(logits.numpy(), full[:, S + t].numpy(), **TOL)
 
 
+def _on_reference_fields(port_cfg, ref_cfg) -> tuple[dict, dict, dict]:
+    """Both configs as dicts of the reference's fields (its ``MoESpec``'s
+    inside ``moe``), and the port's remaining fields (port-only) apart."""
+    port, ref = dataclasses.asdict(port_cfg), dataclasses.asdict(ref_cfg)
+    extra = {k: port.pop(k) for k in set(port) - set(ref)}
+    if port.get("moe") is not None:
+        extra["moe"] = {k: port["moe"].pop(k) for k in set(port["moe"]) - set(ref["moe"])}
+    return port, ref, extra
+
+
 def test_configs_equal_reference():
-    assert list_archs() == ref_list_archs()
-    for name in list_archs():
+    """The reference's archs equal its configs on its fields, and the
+    port-only fields (latent attention, leading dense layers, DeepSeek's
+    router) sit at their defaults there; the port adds the archs of
+    ``PORT_ONLY_ARCHS`` alone."""
+    assert list_archs() == sorted([*ref_list_archs(), *PORT_ONLY_ARCHS])
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    moe_defaults = {f.name: f.default for f in dataclasses.fields(MoESpec)}
+    for name in ref_list_archs():
         for port_cfg, ref_cfg in ((get_arch(name), ref_get_arch(name)),
                                   (get_arch(name).reduced(), ref_get_arch(name).reduced())):
-            assert dataclasses.asdict(port_cfg) == dataclasses.asdict(ref_cfg)
+            port, ref, extra = _on_reference_fields(port_cfg, ref_cfg)
+            assert port == ref
+            for key, value in extra.items():
+                want = moe_defaults if key == "moe" else defaults
+                assert (value == {k: want[k] for k in value} if key == "moe"
+                        else value == want[key]), (name, key)
             assert port_cfg.param_count() == ref_cfg.param_count()
 
 

@@ -270,8 +270,8 @@ def test_launch_counts_read_reset_add_and_delta():
     saved = counts.read()
     try:
         assert set(saved) == {"placement_sweep", "placement_sweep_batch", "flash_attention",
-                              "flash_attention_mma", "decode_attention", "ssd_scan",
-                              "ssd_scan_mma", "rglru_scan"}
+                              "flash_attention_mma", "decode_attention", "mla_decode",
+                              "ssd_scan", "ssd_scan_mma", "rglru_scan"}
         counts.reset()
         assert set(counts.read().values()) == {0}
         before = counts.read()
