@@ -73,7 +73,8 @@ Phases (each raises on failure, so any failure exits non-zero):
     prefill's launches by the layer's kind (30 flash-attention; 24
     SSD-scan; 18 RG-LRU-scan and 8 flash-attention; 28; 72 = 24 encoder +
     2 x 24 decoder; 48; every flash-attention and SSD-scan launch on its
-    tensor-core kernel) and no other launch; under ``ServeEngine(jit=False)``
+    tensor-core kernel), the rotary kernel once a layer that rotates q and
+    k, and no other launch; under ``ServeEngine(jit=False)``
     (every op dispatched from the host) and then ``jit=True`` (the default:
     the prefill and the decode step captured as CUDA graphs, kernels 3-5
     inside the captured prefill) on the same weights, greedy tokens equal,
@@ -329,6 +330,12 @@ DECODE_ATTN = {"chat": (256, 12, 2, 768, 128), "doc": (16, 12, 2, 8200, 128)}
 # the timed fill; the score scale 1 / sqrt(128 + 64).
 MLA_DECODE = (64, 16, 768, 512)
 MLA_SCALE = 192 ** -0.5
+# The rotary kernel's shapes in the benchmark's cells (bf16; B, S): qwen2-vl's
+# M-RoPE over 12 query and 2 kv heads of 128 at a chat decode step (256 rows)
+# and at the doc cell's prefill (16 pages of 8192 positions), and
+# moonlight's 64-wide rope columns of 16 query heads and the shared key at
+# a decode step (64 rows).
+ROTARY = {"chat_decode": (256, 1), "doc_prefill": (16, 8192), "moonlight_decode": (64, 1)}
 # The MoE, VLM and enc-dec models' prefill attention (8 prompts of 1024
 # positions, bf16): moonshot-v1-16b-a3b (16 query and 16 kv heads of 128),
 # qwen2-vl-2b (12 query heads on 2 kv heads of 128), seamless-m4t-large-v2
@@ -1898,9 +1905,128 @@ def phase_mla_replay(device) -> dict:
     if per_replay != cfg.n_layers:
         raise AssertionError(f"a moonlight decode replay launched mla_decode {per_replay} "
                              f"times, not once a layer ({cfg.n_layers})")
-    rec = {"per_replay": per_replay, "replayed": engine._decode.replayed["mla_decode"]}
+    rec = {"per_replay": per_replay, "replayed": engine._decode.replayed["mla_decode"],
+           "rotary_replayed": engine._decode.replayed["rotary"]}
     print("[launches] " + json.dumps({"mla_decode_moonlight_decode": rec}), flush=True)
     del engine, model
+    return rec
+
+
+def _rotary_case(what: str, dtype, device, seed: int):
+    """(q, k, positions, theta, sections) at a benchmark cell's shape
+    (ROTARY): qwen2-vl's M-RoPE over a decode step (a 0-d position
+    expanded to (B, 1, 3), as the captured step holds it) or the doc
+    cell's prefill (a 96 x 64 patch grid with (0, r, c) streams, then text
+    in all three); latent attention's rope columns of q and of the latent
+    product where they lie, at a Moonlight decode step."""
+    import torch
+
+    B, S = ROTARY[what]
+    g = torch.Generator(device).manual_seed(seed)
+    if what == "moonlight_decode":
+        q = torch.randn((B, S, 16, 192), generator=g, device=device).to(dtype)[..., 128:]
+        kv = torch.randn((B, S, 576), generator=g, device=device).to(dtype)
+        pos = torch.full((), 511, dtype=torch.long, device=device).expand(B, S)
+        return q, kv[:, :, None, 512:], pos, 5e4, None
+    q = torch.randn((B, S, 12, 128), generator=g, device=device).to(dtype)
+    k = torch.randn((B, S, 2, 128), generator=g, device=device).to(dtype)
+    if S == 1:
+        pos = torch.full((), 767, dtype=torch.long, device=device).expand(B, S, 3)
+    else:
+        r, c = torch.meshgrid(torch.arange(96), torch.arange(64), indexing="ij")
+        patches = torch.stack([torch.zeros_like(r), r, c], dim=-1).reshape(-1, 3)
+        text = (patches.shape[0] + torch.arange(S - patches.shape[0]))[:, None].expand(-1, 3)
+        pos = torch.cat([patches, text])[None].expand(B, S, 3).contiguous().to(device)
+    return q, k, pos, 1e6, (16, 24, 24)
+
+
+def _graph_ms(fn, n: int, reps: int) -> float:
+    """Device ms of one of ``n`` calls of ``fn`` captured as one CUDA graph
+    (a layer's launch inside a captured step), by ``_events_ms``."""
+    import torch
+
+    fn()  # the library loaded and the plain route's shapes warmed outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = _events_ms(graph.replay, reps) / n
+    del graph
+    return ms
+
+
+def phase_rotary_vs_plain(device) -> dict:
+    """rotary (kernel 8): the kernel through ``ops.rotary`` (one launch a
+    call, q and k rotated in place) vs its plain route, ``rotary_plain``
+    (``layers.apply_rope`` / ``apply_mrope`` on each) on the same inputs, at
+    the benchmark cells' shapes (ROTARY) in float32 and bf16: at float32
+    within 1e-6 (absolute and relative); at bf16 within half a bf16 unit
+    (2**-8 of the magnitude) and 2e-5 of the plain route at float32, with
+    the count of bf16 elements that differ from the plain route's bf16
+    output.  Then timed in bf16 against the bytes bound (each element of q
+    and k read and written once) and the plain route: the decode shapes as
+    one of a layer count of launches in a captured graph, the prefill
+    shape by events (the doc shape's record returned, the others under
+    their names).  No single PyTorch call computes the rotation."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rotary import rotary_cuda, rotary_plain
+
+    errs, differ = {}, {}
+    for i, what in enumerate(ROTARY):
+        for name in ML_TOL:
+            q, k, pos, theta, sections = _rotary_case(what, getattr(torch, name), device, 80 + i)
+            before = rotary_cuda.launches
+            got = ops.rotary(q.clone(), k.clone(), pos, theta, sections)
+            if rotary_cuda.launches != before + 1:
+                raise AssertionError(f"rotary {what} {name}: {rotary_cuda.launches - before} "
+                                     f"launches")
+            key = f"{what} {name}"
+            if name == "float32":
+                want = rotary_plain(q, k, pos, theta, sections)
+                errs[key] = max(_err(g, w, 1e-6, f"rotary {key}") for g, w in zip(got, want))
+            else:
+                want = rotary_plain(q.float(), k.float(), pos, theta, sections)
+                errs[key] = max(_err(g, w, 2e-5, f"rotary {key} against float32", rtol=2.0**-8)
+                                for g, w in zip(got, want))
+                plain = rotary_plain(q, k, pos, theta, sections)
+                differ[what] = [sum(int((g != w).sum()) for g, w in zip(got, plain)),
+                                q.numel() + k.numel()]
+            del q, k, got, want
+    print(f"[kernel] rotary: {len(errs)} cases within tolerance (the cells' shapes {ROTARY}), "
+          f"max abs err f32 {max(e for c, e in errs.items() if c.endswith('float32')):.3g}, "
+          f"bf16 {max(e for c, e in errs.items() if c.endswith('bfloat16')):.3g}; bf16 "
+          f"elements that differ from the plain route's bf16 output: {differ}", flush=True)
+
+    recs = {}
+    for i, what in enumerate(ROTARY):
+        q, k, pos, theta, sections = _rotary_case(what, torch.bfloat16, device, 85 + i)
+        n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        # the rotation's 6 operations a pair of elements; the angles' sincos aside
+        n_ops = 3 * (q.numel() + k.numel())
+        kernel = lambda: rotary_cuda(q, k, pos, theta, sections)  # noqa: E731
+        plain = lambda: rotary_plain(q, k, pos, theta, sections)  # noqa: E731
+        if q.shape[1] == 1:  # a decode step: a launch a layer in the captured step
+            layers = 27 if what == "moonlight_decode" else 28
+            ms, plain_ms = (_graph_ms(fn, layers, TIMED_REPS) for fn in (kernel, plain))
+        else:
+            ms, plain_ms = _events_ms(kernel, TIMED_REPS), _events_ms(plain, ML_REPS)
+        recs[what] = {"shape": {"q": list(q.shape), "k": list(k.shape),
+                                "positions": list(pos.shape)},
+                      "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+                      "plain_over_kernel": plain_ms / ms, "library_ms": None,
+                      **_ml_bound(n_ops, n_bytes, ops_per_s=FP32_OPS_PER_S)}
+        del q, k, pos
+    rec = {**recs.pop("doc_prefill"), **recs, "max_abs_err": max(errs.values()),
+           "case_errs": errs, "bf16_differ": differ}
+    print("[kernel] " + json.dumps({"rotary_timing": rec}), flush=True)
+    for what, r in (("doc_prefill", rec), *((w, rec[w]) for w in recs)):
+        print(f"[kernel] rotary at {what} {r['shape']}: {r['ms'] * 1e3:.2f} us a launch; bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of "
+              f"it); plain {r['plain_ms'] * 1e3:.2f} us ({r['plain_over_kernel']:.1f}x the "
+              f"kernel's time)", flush=True)
     return rec
 
 
@@ -2082,6 +2208,7 @@ KERNEL_SYMBOLS = {
     "decode_attention": ("decode_attention_kernel",),
     "ssd_scan": ("ssd_chunk_kernel", "ssd_score_kernel", "ssd_state_kernel", "ssd_out_kernel"),
     "rglru_scan": ("rglru_chunk_scan_kernel",),
+    "rotary": ("rotary_kernel",),
 }
 
 
@@ -2147,18 +2274,6 @@ def _prefill_vs_plain(model, batch) -> dict:
     if got_routes:
         rec.update(_route_diff(got_routes, want_routes))
     return rec
-
-
-def _expected_launches(cfg) -> dict:
-    """A prefill's kernel launches: one a layer, by the layer's kind; an
-    enc-dec model's one an encoder layer (its self-attention) and two a
-    decoder layer (self- and cross-attention)."""
-    kinds = cfg.layer_kinds()
-    want = {"flash_attention": kinds.count("attn"), "ssd_scan": kinds.count("ssm"),
-            "rglru_scan": kinds.count("rec")}
-    if cfg.family == "encdec":
-        want["flash_attention"] += cfg.enc_layers + cfg.n_layers
-    return {k: n for k, n in want.items() if n}
 
 
 def _mrope_positions(B: int, grid: int, n_text: int) -> np.ndarray:
@@ -2288,16 +2403,16 @@ def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tupl
     first call of a step: warm-up and capture)."""
     import torch
 
-    from repro_torch.kernels.counts import decode_launches
+    from repro_torch.kernels.counts import decode_launches, prefill_launches, total
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.serve.graphs import signature
 
     cfg = model.cfg
-    want = _expected_launches(cfg)
+    want = prefill_launches(cfg)
     S, new = SERVE["prompt"], SERVE["new"]
     # a generate's launches: its prefill's, then one decode step's under jit
     # (the warm-up before the capture) or every step's eagerly
-    generate_want = {**want, **decode_launches(cfg, 1 if jit else new - 1)}
+    generate_want = total(want, decode_launches(cfg, 1 if jit else new - 1))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
@@ -2330,7 +2445,7 @@ def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tupl
     # changed its state's shape (an enc-dec's cross cache): a new capture,
     # whose warm-up step launches
     _check_launches(f"serve {cfg.name} jit={jit}, a shorter prompt's generate", short_counts,
-                    {**want, **decode_launches(cfg, len(engine._decode.graphs) - decode_graphs)}
+                    total(want, decode_launches(cfg, len(engine._decode.graphs) - decode_graphs))
                     if jit else generate_want)
     prefill_ms, decode_ms = _prefill_decode_ms(engine, batch, S, new)
     rec = {"jit": jit, "generate_first_s": runs[0][1], "generate_s": runs[1][1],
@@ -2359,7 +2474,7 @@ def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tupl
         for got in rec["graph_launches"]["decode"]:
             _check_launches(f"serve {cfg.name}, a decode graph's kernel nodes", got,
                             decode_launches(cfg, 1))
-    traced_want = {**want, **decode_launches(cfg, 7)}  # 8 tokens: a prefill and 7 steps
+    traced_want = total(want, decode_launches(cfg, 7))  # 8 tokens: a prefill and 7 steps
     split, traced = _counted(lambda: _device_split(
         lambda: (engine.generate(batch, 8), torch.cuda.synchronize()),
         kernels=tuple(k for n in traced_want for k in KERNEL_SYMBOLS[n])))
@@ -2370,8 +2485,8 @@ def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tupl
     # replays (the graphs' kernel nodes), each shown in the trace
     _check_launches(f"serve {cfg.name} jit={jit}, the traced generate's wrappers", traced,
                     {} if jit else traced_want)
-    rec["launches"] = ({**engine._prefill.launches(signature((batch,))),
-                        **decode_launches(cfg, 7)} if jit else
+    rec["launches"] = (total(engine._prefill.launches(signature((batch,))),
+                             decode_launches(cfg, 7)) if jit else
                        {k: n for k, n in traced.items() if n})
     _check_traced(f"serve {cfg.name} jit={jit}, the traced generate", split["launches_seen"],
                   rec["launches"])
@@ -2430,6 +2545,7 @@ def phase_serve_check(name: str, device) -> dict:
     import torch
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.counts import prefill_launches
     from repro_torch.models import Model
     from repro_torch.serve.engine import _pad_cache_to
 
@@ -2444,7 +2560,7 @@ def phase_serve_check(name: str, device) -> dict:
     batch = _serve_batch(cfg, B, S, 21, CHECK_GRID)
     ((g_last, g_state), g_routes), counts = _counted(
         lambda: _routed(lambda: gpu.prefill(_on(batch, device))))
-    want = _expected_launches(cfg)
+    want = prefill_launches(cfg)
     if (counts["flash_attention_mma"] or counts["ssd_scan_mma"]
             or counts["flash_attention"] != want.get("flash_attention", 0)
             or counts["ssd_scan"] != want.get("ssd_scan", 0)):
@@ -3346,6 +3462,7 @@ def main() -> int:
     timing_decode = phase_decode_vs_plain(device)
     timing_mla = phase_mla_decode_vs_plain(device)
     mla_replay = phase_mla_replay(device)
+    timing_rotary = phase_rotary_vs_plain(device)
     timing_ssd = phase_ssd_vs_plain(device)
     timing_rglru = phase_rglru_vs_plain(device)
 
@@ -3483,6 +3600,9 @@ def main() -> int:
         # no TPU kernel and no JAX model: latent attention is the port's alone
         ("mla_decode", "none (no latent attention in src/repro)", timing_mla,
          mla_replay["replayed"]),
+        # no TPU kernel: the JAX package rotates q and k in XLA ops
+        ("rotary", "none (src/repro/models/layers.py: apply_rope, apply_mrope)", timing_rotary,
+         served("rotary") + mla_replay["rotary_replayed"]),
     ):
         kernels.append(_kernel_row(name, replaces, rec, n))
     print(json.dumps({"kernels": kernels}))

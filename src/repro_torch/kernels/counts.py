@@ -5,9 +5,10 @@ Each CUDA wrapper adds one to its count where it launches its kernel
 (``flash_attention_cuda.launches`` and ``.mma_launches``,
 ``decode_attention_cuda.launches``, ``mla_decode_cuda.launches``,
 ``ssd_scan_cuda.launches`` and ``.mma_launches``,
-``rglru_scan_cuda.launches``, the two sweeps' ``launches``), and nowhere
-else.  A CUDA graph that replays a captured step launches its kernels with
-no wrapper running, so the counts do not see a replay: the serving engine
+``rglru_scan_cuda.launches``, ``rotary_cuda.launches``, the two sweeps'
+``launches``), and nowhere else.  A CUDA graph that replays a captured
+step launches its kernels with no wrapper running, so the counts do not
+see a replay: the serving engine
 (``serve.graphs.CudaGraphStep``) takes back what a capture added (a
 capture launches nothing, through ``add``) and keeps its own tally of its
 replays.  ``seen`` reads the launches that kernel names stand for: a
@@ -26,9 +27,11 @@ from .flash_attention import flash_attention_cuda
 from .mla_decode import mla_decode_cuda
 from .placement_step import placement_sweep_batch_cuda, placement_sweep_cuda
 from .rglru_scan import rglru_scan_cuda
+from .rotary import rotary_cuda
 from .ssd_scan import ssd_scan_cuda
 
-__all__ = ["read", "reset", "add", "delta", "seen", "decode_launches"]
+__all__ = ["read", "reset", "add", "delta", "total", "seen", "prefill_launches",
+           "decode_launches"]
 
 # name -> (wrapper, attribute); "<kernel>_mma" counts the launches of the
 # tensor-core kernel, a part of "<kernel>"'s
@@ -42,18 +45,46 @@ _COUNTERS = {
     "ssd_scan": (ssd_scan_cuda, "launches"),
     "ssd_scan_mma": (ssd_scan_cuda, "mma_launches"),
     "rglru_scan": (rglru_scan_cuda, "launches"),
+    "rotary": (rotary_cuda, "launches"),
 }
+
+
+def _rotary_layers(cfg) -> int:
+    """Layers whose self-attention rotates q and k: every attention layer
+    of a model with RoPE or M-RoPE (the hybrid's local attention always;
+    an enc-dec's decoder, whose cross-attention does not)."""
+    if cfg.family in ("hybrid", "ssm"):
+        return cfg.layer_kinds().count("attn")
+    rotates = cfg.rope == "rope" if cfg.family == "encdec" else cfg.rope != "none"
+    return cfg.n_layers if rotates else 0
+
+
+def prefill_launches(cfg) -> dict[str, int]:
+    """A prefill's launches of a model of config ``cfg``: one a layer by
+    the layer's kind (flash attention, SSD scan, RG-LRU scan), the rotary
+    kernel one a layer that rotates; an enc-dec model's flash attention
+    and rotary also one an encoder layer, and its flash attention two a
+    decoder layer (self- and cross-attention)."""
+    kinds = cfg.layer_kinds()
+    want = {"flash_attention": kinds.count("attn"), "ssd_scan": kinds.count("ssm"),
+            "rglru_scan": kinds.count("rec"), "rotary": _rotary_layers(cfg)}
+    if cfg.family == "encdec":
+        want["flash_attention"] += cfg.enc_layers + cfg.n_layers
+        want["rotary"] += cfg.enc_layers if want["rotary"] else 0
+    return {k: n for k, n in want.items() if n}
 
 
 def decode_launches(cfg, steps: int) -> dict[str, int]:
     """``steps`` decode steps' launches of a model of config ``cfg``: one
     decode attention a layer with a KV cache, two an enc-dec decoder layer
     (self- and cross-attention), one latent decode a layer under latent
-    attention; the ssm and hybrid families decode without one."""
+    attention (the ssm and hybrid families decode without one); the rotary
+    kernel one a layer that rotates."""
     n = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
          "encdec": 2 * cfg.n_layers}.get(cfg.family, 0)
     name = "mla_decode" if getattr(cfg, "mla", False) else "decode_attention"
-    return {name: n * steps} if n and steps else {}
+    out = {name: n * steps, "rotary": _rotary_layers(cfg) * steps}
+    return {k: v for k, v in out.items() if v}
 
 
 def read() -> dict[str, int]:
@@ -95,7 +126,18 @@ _SYMBOLS = {
     "ssd_scan": ("ssd_scan_kernel", "ssd_out_kernel"),
     "ssd_scan_mma": ("ssd_out_kernel",),
     "rglru_scan": ("rglru_chunk_scan_kernel",),
+    "rotary": ("rotary_kernel",),
 }
+
+
+def total(*launches: dict[str, int]) -> dict[str, int]:
+    """Launch counts by name summed over ``launches`` (a prefill's and its
+    decode steps', say: both run the rotary kernel)."""
+    out: dict[str, int] = {}
+    for part in launches:
+        for name, n in part.items():
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def seen(kernel_names: Iterable[str]) -> dict[str, int]:

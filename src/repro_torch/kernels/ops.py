@@ -22,10 +22,11 @@ from .placement_step import (
     placement_sweep_plain,
 )
 from .rglru_scan import rglru_scan_cuda, rglru_scan_plain
+from .rotary import rotary_cuda, rotary_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
-__all__ = ["flash_attention", "mla_decode", "ssd_scan", "rglru_scan", "placement_sweep",
-           "placement_sweep_batch"]
+__all__ = ["flash_attention", "mla_decode", "rotary", "ssd_scan", "rglru_scan",
+           "placement_sweep", "placement_sweep_batch"]
 
 
 def _pick(t: torch.Tensor, plain, kernel, name: str):
@@ -131,6 +132,18 @@ def mla_decode(q: torch.Tensor, ckv: torch.Tensor, kr: torch.Tensor, *,
     tensor ``mla_decode_plain``."""
     fn = _pick(q, mla_decode_plain, mla_decode_cuda, "mla_decode")
     return fn(q, ckv, kr, kv_len=kv_len, scale=scale)
+
+
+def rotary(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, theta: float,
+           sections: tuple[int, ...] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """q (B, S, Hq, D) and k (B, S, Hk, D) rotated by their shared
+    positions: RoPE with ``sections`` None and positions (B, S), M-RoPE
+    with positions (B, S, len(sections)).  A CUDA tensor runs kernel 8
+    (``rotary_cuda``: both in one launch, in place), a CPU tensor
+    ``rotary_plain`` (``layers.apply_rope`` / ``apply_mrope``, new
+    tensors); either way the caller takes the returned pair."""
+    fn = _pick(q, rotary_plain, rotary_cuda, "rotary")
+    return fn(q, k, positions, theta, sections)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = False):

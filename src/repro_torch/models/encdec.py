@@ -22,13 +22,14 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..sharding.ctx import einsum, embed_lookup, shard, write_slice
-from .layers import apply_rope, rms_norm, swiglu
+from .layers import rms_norm, swiglu
 from .params import ParamSpec
 from .transformer import (
     ExecConfig,
     _attn_dispatch,
     _cached_attention,
     _layer,
+    _rotary,
     attn_specs,
     mlp_specs,
 )
@@ -73,11 +74,10 @@ def _proj(hn: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return einsum("bsd,dhk->bshk", hn, w.to(hn.dtype))
 
 
-def _proj_qkv(cfg: ModelConfig, a: dict, hn: torch.Tensor, pos: torch.Tensor):
+def _proj_qkv(cfg: ModelConfig, ex: ExecConfig, a: dict, hn: torch.Tensor, pos: torch.Tensor):
     q, k, v = _proj(hn, a["wq"]), _proj(hn, a["wk"]), _proj(hn, a["wv"])
     if cfg.rope == "rope":
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+        q, k = _rotary(ex, q, k, pos, cfg.rope_theta)
     q = shard(q, "batch", "seq", "heads", None)
     k = shard(k, "batch", "seq", "kv", None)
     v = shard(v, "batch", "seq", "kv", None)
@@ -103,7 +103,7 @@ def encode(cfg: ModelConfig, ex: ExecConfig, params: dict, enc_embeds: torch.Ten
     def body(h, p):
         h = shard(h, "batch", "act_seq", None)
         hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-        q, k, v = _proj_qkv(cfg, p["attn"], hn, pos)
+        q, k, v = _proj_qkv(cfg, ex, p["attn"], hn, pos)
         h = h + _out(_attn_dispatch(ex, q, k, v, causal=False, window=0), p["attn"]["wo"])
         h = shard(h, "batch", "act_seq", None)
         hn2 = rms_norm(h, p["ln2"], cfg.norm_eps)
@@ -124,7 +124,7 @@ def _dec_block(cfg, ex, p, h, enc_out, pos, *, self_cache, cache_idx):
     h = shard(h, "batch", "act_seq", None)
     # --- causal self-attention ---
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-    q, k, v = _proj_qkv(cfg, p["attn"], hn, pos)
+    q, k, v = _proj_qkv(cfg, ex, p["attn"], hn, pos)
     if self_cache is None:
         out = _attn_dispatch(ex, q, k, v, causal=True, window=0)
         new_self = (k, v)

@@ -30,10 +30,10 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels import ref as kref
 from ..sharding.ctx import einsum, embed_lookup, reshape, shard, write_slice
-from .layers import _NEG_INF, apply_rope, decode_positions, rms_norm, swiglu
+from .layers import _NEG_INF, decode_positions, rms_norm, swiglu
 from .params import ParamSpec
 from .ssm import _causal_conv, _conv_step, _head
-from .transformer import ExecConfig, _attn_dispatch, _layer, attn_specs, mlp_specs
+from .transformer import ExecConfig, _attn_dispatch, _layer, _rotary, attn_specs, mlp_specs
 
 __all__ = ["hybrid_specs", "hybrid_forward", "hybrid_decode_step", "init_hybrid_state"]
 
@@ -184,8 +184,7 @@ def _attn_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, idx, ret
     B, S = hn.shape[0], hn.shape[1]
     if state is None:
         pos = torch.arange(S, device=h.device)[None, :].expand(B, S)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+        q, k = _rotary(ex, q, k, pos, cfg.rope_theta)
         out = _attn_dispatch(ex, q, k, v, causal=True, window=win)
         if return_state:
             # the ring from the last `window` positions; slots a short
@@ -195,8 +194,7 @@ def _attn_block(cfg: ModelConfig, ex: ExecConfig, p: dict, h, *, state, idx, ret
             new_state["cv"] = v[:, safe].to(dt)
     else:
         pos = decode_positions(idx, (B, 1), h.device)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+        q, k = _rotary(ex, q, k, pos, cfg.rope_theta)
         ck, cv = state["ck"], state["cv"]
         slot = idx % win
         write_slice(ck, k.to(ck.dtype), slot)

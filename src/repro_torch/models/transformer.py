@@ -59,6 +59,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.flash_attention import HEAD_DIMS
 from ..kernels.mla_decode import mla_decode_plain
+from ..kernels.rotary import rotary_plain
 from ..sharding.ctx import (
     bind_ctx,
     einsum,
@@ -69,8 +70,6 @@ from ..sharding.ctx import (
     write_slice,
 )
 from .layers import (
-    apply_mrope,
-    apply_rope,
     chunked_attention,
     decode_positions,
     dropless_moe,
@@ -328,13 +327,19 @@ def _qkv(cfg: ModelConfig, ex: ExecConfig, p: dict, hn, pos, *, cached: bool):
     q = shard(q, "batch", "act_seq" if cp else "seq", "heads", None)
     k = shard(k, "batch", "seq", "kv", None)
     v = shard(v, "batch", "seq", "kv", None)
-    if cfg.rope == "mrope":
-        q = apply_mrope(q, pos, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, pos, cfg.rope_theta, cfg.mrope_sections)
-    elif cfg.rope == "rope":
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+    if cfg.rope != "none":
+        q, k = _rotary(ex, q, k, pos, cfg.rope_theta,
+                       cfg.mrope_sections if cfg.rope == "mrope" else None)
     return q, k, v
+
+
+def _rotary(ex: ExecConfig, q, k, pos, theta: float, sections: tuple[int, ...] | None = None):
+    """RoPE (``sections`` None) or M-RoPE of q and k on ``ex.attn_impl``'s
+    route: ``"pallas"`` takes ``ops.rotary`` (kernel 8 on CUDA tensors,
+    which rotates q and k in place), ``"xla"`` the plain route,
+    ``layers.apply_rope`` / ``apply_mrope``.  Returns the rotated pair."""
+    rotate = ops.rotary if ex.attn_impl == "pallas" else rotary_plain
+    return rotate(q, k, pos, theta, sections)
 
 
 def _attend(ex: ExecConfig, q, k, v, *, cache, cache_idx):
@@ -413,19 +418,23 @@ def _mla(cfg: ModelConfig, ex: ExecConfig, p: dict, h, pos, *, cache, cache_idx)
         hn = rms_norm(h, p["ln1"], cfg.norm_eps)
         dt = hn.dtype
         q = einsum("bsd,dhk->bshk", hn, a["wq"].to(dt))
-        q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], pos, cfg.rope_theta)
         kv = einsum("bsd,dk->bsk", hn, a["wkv_a"].to(dt))
         c = rms_norm(kv[..., :r], a["kv_norm"], cfg.norm_eps)[:, :, None]  # (B, S, 1, r)
-        kr = apply_rope(kv[:, :, None, r:], pos, cfg.rope_theta)  # (B, S, 1, rope)
+        # the rope columns of q and the rope key (B, S, 1, rope); the
+        # kernel rotates them where they lie, in q and kv
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
+        rotated, kr = _rotary(ex, q_rope, kv[:, :, None, r:], pos, cfg.rope_theta)
         if cache is None:  # each head's q, k (nope ‖ rope) and v
-            q = torch.cat([q_nope, q_rope], dim=-1)
+            if rotated is not q_rope:  # the plain route's new tensor
+                q = torch.cat([q_nope, rotated], dim=-1)
+            kr = kr.contiguous()  # the cache's rope key, apart from kv
             k = torch.cat([einsum("bsr,rhn->bshn", c[:, :, 0], a["wk_b"].to(dt)),
                            kr.expand(-1, -1, cfg.n_heads, -1)], dim=-1)
             v = einsum("bsr,rhv->bshv", c[:, :, 0], a["wv_b"].to(dt))
         else:  # the absorbed query (B, H, r + rope)
             q = torch.cat([einsum("bhn,rhn->bhr", q_nope[:, 0], a["wk_b"].to(dt)),
-                           q_rope[:, 0]], dim=-1)
-        del hn, q_nope, q_rope, kv
+                           rotated[:, 0]], dim=-1)
+        del hn, q_nope, q_rope, rotated, kv
     with trace.span("attn.core", dev, after=part) as part:
         if cache is None:
             out = _padded_attention(ex, q, k, v, scale)

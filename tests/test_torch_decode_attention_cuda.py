@@ -240,7 +240,7 @@ def test_a_qwen2vl_decode_graph_launches_the_kernel_in_all_28_layers(cuda_device
     # the eager warm-up of the decode step, one launch a layer; the capture takes its back
     assert counts.delta(counts.read(), before)["decode_attention"] == cfg.n_layers == 28
     (key,) = engine._decode.graphs
-    assert engine._decode.launches(key) == {"decode_attention": 28}
-    assert engine._decode.replayed == {"decode_attention": 28 * 4}
+    assert engine._decode.launches(key) == {"decode_attention": 28, "rotary": 28}
+    assert engine._decode.replayed == {"decode_attention": 28 * 4, "rotary": 28 * 4}
     eager = ServeEngine(model, ServeConfig(max_len=P + n_text + 6), jit=False)
     assert torch.equal(tokens, eager.generate(batch, 6))

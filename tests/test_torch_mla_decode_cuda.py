@@ -149,7 +149,7 @@ def test_a_moonlight_decode_replay_launches_the_kernel_in_all_27_layers(cuda_dev
     tokens = torch.randint(0, cfg.vocab, (4, 20), device=cuda_device, dtype=torch.int32)
     engine.generate({"tokens": tokens}, 5)
     (key,) = [k for k in engine._decode.graphs]
-    assert engine._decode.launches(key) == {"mla_decode": 27}
+    assert engine._decode.launches(key) == {"mla_decode": 27, "rotary": 27}
 
 
 @pytest.mark.needs_cuda

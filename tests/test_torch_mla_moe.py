@@ -321,8 +321,9 @@ def test_the_latent_kernels_count_as_mla_decode_launches():
              "void (anonymous namespace)::mla_decode_merge_kernel<float>(float const*)",
              "void (anonymous namespace)::decode_attention_kernel<float, 64, 2>(float const*)"]
     assert counts.seen(names) == {"mla_decode": 2, "decode_attention": 1}
-    assert counts.decode_launches(get_arch(ARCH), 3) == {"mla_decode": 81}
-    assert counts.decode_launches(get_arch("moonshot-v1-16b-a3b"), 3) == {"decode_attention": 144}
+    assert counts.decode_launches(get_arch(ARCH), 3) == {"mla_decode": 81, "rotary": 81}
+    assert counts.decode_launches(get_arch("moonshot-v1-16b-a3b"), 3) == {
+        "decode_attention": 144, "rotary": 144}
 
 
 def test_training_and_the_dry_run_refuse_latent_attention():

@@ -271,7 +271,7 @@ def test_launch_counts_read_reset_add_and_delta():
     try:
         assert set(saved) == {"placement_sweep", "placement_sweep_batch", "flash_attention",
                               "flash_attention_mma", "decode_attention", "mla_decode",
-                              "ssd_scan", "ssd_scan_mma", "rglru_scan"}
+                              "ssd_scan", "ssd_scan_mma", "rglru_scan", "rotary"}
         counts.reset()
         assert set(counts.read().values()) == {0}
         before = counts.read()
@@ -378,17 +378,6 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _want_launches(cfg) -> dict:
-    """A prefill's kernel launches (one a layer of its kind; an enc-dec
-    decoder layer two), float32: no tensor-core launch."""
-    kinds = cfg.layer_kinds()
-    want = {"flash_attention": kinds.count("attn"), "ssd_scan": kinds.count("ssm"),
-            "rglru_scan": kinds.count("rec")}
-    if cfg.family == "encdec":
-        want["flash_attention"] += cfg.enc_layers + cfg.n_layers
-    return {k: n for k, n in want.items() if n}
-
-
 def _counted(run):
     counts.reset()
     out = run()
@@ -428,13 +417,13 @@ def test_captured_generate_equals_eager_and_replays(cuda_device, name):
     S, new = (13, 6) if model.cfg.family == "hybrid" else (12, 5)
     cfg = ServeConfig(max_len=S + new)
     eager, captured = ServeEngine(model, cfg, jit=False), ServeEngine(model, cfg)
-    want = _want_launches(model.cfg)
+    want = counts.prefill_launches(model.cfg)  # float32: no tensor-core launch
     step = counts.decode_launches(model.cfg, 1)  # a decode step's
     first, second = (_torch(_batch(model.cfg, S, seed), cuda_device) for seed in (1, 2))
     got, n_first = _counted(lambda: captured.generate(first, new))  # captures both steps
     assert torch.equal(got, eager.generate(first, new))
     assert len(captured._prefill.graphs) == len(captured._decode.graphs) == 1
-    assert n_first == {**want, **step}  # the eager warm-ups' launches
+    assert n_first == counts.total(want, step)  # the eager warm-ups' launches
     assert captured._prefill.replayed == {}
     (again, seen), n_again = _counted(
         lambda: _traced_launches(lambda: captured.generate(first, new)))  # replays
@@ -443,11 +432,11 @@ def test_captured_generate_equals_eager_and_replays(cuda_device, name):
     assert captured._prefill.launches(prefill_key) == want  # the graph's kernel nodes
     assert captured._decode.launches(decode_key) == step
     steps = counts.decode_launches(model.cfg, new - 1)
-    assert _shows(seen, {**want, **steps}) and captured._prefill.replayed == want
+    assert _shows(seen, counts.total(want, steps)) and captured._prefill.replayed == want
     other, n_other = _counted(lambda: captured.generate(second, new))
     _, n_eager = _counted(lambda: eager.generate(second, new))
     assert torch.equal(other, eager.generate(second, new))
-    assert n_other == {} and n_eager == {**want, **steps}
+    assert n_other == {} and n_eager == counts.total(want, steps)
     assert captured._prefill.replayed == {k: 2 * n for k, n in want.items()}
     assert len(captured._prefill.graphs) == len(captured._decode.graphs) == 1
     assert len(captured._prefill.captures) == len(captured._decode.captures) == 1
@@ -550,10 +539,11 @@ def test_bf16_captured_generate_runs_on_the_tensor_core_kernels(cuda_device):
     engine = ServeEngine(model, ServeConfig(max_len=32))
     batch = {"tokens": torch.randint(0, cfg.vocab, (B, 24), device=cuda_device,
                                      generator=torch.Generator(cuda_device).manual_seed(9))}
-    want = {"flash_attention": cfg.n_layers, "flash_attention_mma": cfg.n_layers}
+    want = {"flash_attention": cfg.n_layers, "flash_attention_mma": cfg.n_layers,
+            "rotary": cfg.n_layers}
     _, n = _counted(lambda: engine.generate(batch, 4))  # the warm-up and the captures
-    assert n == {**want, **counts.decode_launches(cfg, 1)}
+    assert n == counts.total(want, counts.decode_launches(cfg, 1))
     (_, seen), n = _counted(lambda: _traced_launches(lambda: engine.generate(batch, 4)))
     (key,) = engine._prefill.graphs
     assert n == {} and engine._prefill.launches(key) == want
-    assert _shows(seen, {**want, **counts.decode_launches(cfg, 3)})
+    assert _shows(seen, counts.total(want, counts.decode_launches(cfg, 3)))
