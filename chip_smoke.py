@@ -1740,8 +1740,8 @@ def _time_decode(case, device, seed: int) -> dict:
 
 
 def phase_decode_vs_plain(device) -> dict:
-    """decode_attention: the kernel through ``ops.flash_attention`` (S ==
-    1 on the card, one launch a call) vs the plain route, chunked_attention
+    """decode_attention: the kernel through ``ops.decode_attention`` (one
+    launch a call on the card) vs the plain route, chunked_attention
     on the same inputs, at the benchmark cells' shapes (DECODE_ATTN) in
     float32 and bf16, the position a 0-d tensor at a middle and the last
     fill: within ML_TOL, and at bf16 also within half a bf16 unit (2**-8 of
@@ -1762,7 +1762,7 @@ def phase_decode_vs_plain(device) -> dict:
             for pos in (T // 2 + 3, T - 1):
                 idx = torch.tensor(pos, dtype=torch.int32, device=device)
                 before = decode_attention_cuda.launches
-                got = ops.flash_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
+                got = ops.decode_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
                 if decode_attention_cuda.launches != before + 1:
                     raise AssertionError(f"decode_attention {what} {name}: "
                                          f"{decode_attention_cuda.launches - before} launches")
@@ -2403,9 +2403,10 @@ def _serve_engine(model, batch: dict, short: dict, device, *, jit: bool) -> tupl
     first call of a step: warm-up and capture)."""
     import torch
 
-    from repro_torch.kernels.counts import decode_launches, prefill_launches, total
+    from repro_torch.kernels.counts import total
+    from repro_torch.models.model import decode_launches, prefill_launches
     from repro_torch.serve import ServeConfig, ServeEngine
-    from repro_torch.serve.graphs import signature
+    from repro_torch.graphs import signature
 
     cfg = model.cfg
     want = prefill_launches(cfg)
@@ -2545,7 +2546,7 @@ def phase_serve_check(name: str, device) -> dict:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.counts import prefill_launches
+    from repro_torch.models.model import prefill_launches
     from repro_torch.models import Model
     from repro_torch.serve.engine import _pad_cache_to
 
@@ -2569,8 +2570,8 @@ def phase_serve_check(name: str, device) -> dict:
                              f"cores")
     (c_last, c_state), c_routes = _routed(lambda: cpu.prefill(batch))
     routes = [(g_routes, c_routes)]
-    g_state = _pad_cache_to(g_state, cfg.family, S + steps)
-    c_state = _pad_cache_to(c_state, cfg.family, S + steps)
+    g_state = _pad_cache_to(g_state, gpu, S + steps)
+    c_state = _pad_cache_to(c_state, cpu, S + steps)
     errs, scales, errs_captured = [], [], []
     pairs = [(g_last, c_last)]
     step = torch.argmax(c_last, dim=-1).to(torch.int32)
@@ -2662,7 +2663,7 @@ def _moe_layouts_agree(cfg, vmap, batch: dict, S: int, fed: list, logits: list,
     model = Model(cfg, ExecConfig(moe_impl="batched"), params=vmap.params, device=device)
     last, state = model.prefill(_on(batch, device))
     got = [last]
-    state = _pad_cache_to(state, cfg.family, S + len(fed))
+    state = _pad_cache_to(state, model, S + len(fed))
     for t, step in enumerate(fed):
         log, state = model.decode_step(state, step.to(device), S + t)
         got.append(log)
@@ -2723,7 +2724,7 @@ def _captured_vs_eager(model, opt, state, batches: list) -> dict:
     ``state`` over ``batches``: per-step losses and grad norms, and the
     final states' largest leaf difference."""
     from repro_torch._tree import tree_map
-    from repro_torch.serve.graphs import CudaGraphStep
+    from repro_torch.graphs import CudaGraphStep
     from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
 
     loop = TrainLoop(model, opt, None, TrainLoopConfig(), jit=True)
@@ -2821,7 +2822,7 @@ def phase_train(device) -> dict:
     from repro_torch._tree import leaves, tree_map
     from repro_torch.configs.shapes import get_shape
     from repro_torch.launch.train import build_loop
-    from repro_torch.serve.graphs import CudaGraphStep
+    from repro_torch.graphs import CudaGraphStep
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2901,7 +2902,7 @@ def phase_train_eager(device, trained: dict) -> dict:
     import torch
 
     from repro_torch.launch.train import build_loop
-    from repro_torch.serve.graphs import CudaGraphStep
+    from repro_torch.graphs import CudaGraphStep
     from repro_torch.train import TrainLoop
 
     S, B, n = TRAIN["seq_len"], TRAIN["batch"], TRAIN_EAGER["steps"]
@@ -2952,7 +2953,7 @@ def phase_train_resume(device) -> dict:
 
     from repro_torch._tree import leaves
     from repro_torch.launch.train import build_loop
-    from repro_torch.serve.graphs import CudaGraphStep
+    from repro_torch.graphs import CudaGraphStep
 
     def replays(loop) -> list:
         if not isinstance(loop.step_fn, CudaGraphStep):
@@ -3077,7 +3078,7 @@ def phase_train_determinism(device) -> dict:
     from repro_torch.data import make_batch_fn
     from repro_torch.models import ExecConfig, Model
     from repro_torch.optim import AdamW, linear_warmup_cosine
-    from repro_torch.serve.graphs import CudaGraphStep
+    from repro_torch.graphs import CudaGraphStep
     from repro_torch.train import TrainLoop, TrainLoopConfig
 
     D = TRAIN_DETERMINISM

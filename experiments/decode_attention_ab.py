@@ -163,7 +163,7 @@ def time_shape(name: str, reps: int, variants: dict) -> dict:
     idx = [torch.tensor(p, dtype=torch.int32, device=dev) for p in positions]
 
     def kernel():
-        return [ops.flash_attention(q, k, v, q_offset=i, kv_len=i + 1) for i in idx]
+        return [ops.decode_attention(q, k, v, q_offset=i, kv_len=i + 1) for i in idx]
 
     def plain():
         return [chunked_attention(q, k, v, q_offset=i, kv_len=i + 1, kv_chunk=T) for i in idx]
@@ -231,7 +231,7 @@ def core_kernels() -> dict:
              "patch_embeds": torch.randn((B, P, cfg.d_model), generator=g, device=dev),
              "positions": pos[None].repeat(B, 1, 1).to(dev)}
     last, state = model.prefill(batch)
-    state = _pad_cache_to(state, cfg.family, T)
+    state = _pad_cache_to(state, model, T)
     tokens = torch.argmax(last, -1).to(torch.int32)
     idx = torch.tensor(P + n_text, dtype=torch.int32, device=dev)
     model.decode_step(state, tokens, idx)  # warm-up
@@ -274,7 +274,7 @@ def check_instantiations() -> dict:
                 q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
                            for s in ((3, 1, 2 * heads, hd), (3, 300, 2, hd), (3, 300, 2, hd)))
                 idx = torch.tensor(200, dtype=torch.int32, device=dev)
-                got = ops.flash_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
+                got = ops.decode_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
                 want = chunked_attention(q, k, v, q_offset=200, kv_len=201, kv_chunk=300)
                 err = float((got.float() - want.float()).abs().max())
                 key = str(dtype).split(".")[-1]

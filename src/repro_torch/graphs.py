@@ -72,9 +72,9 @@ from typing import Any, Callable
 
 import torch
 
-from .. import trace
-from .._tree import leaves, unflatten
-from ..kernels import counts
+from . import trace
+from ._tree import leaves, unflatten
+from .kernels import counts
 
 __all__ = ["CudaGraphStep", "kernel_nodes", "signature"]
 

@@ -4,11 +4,12 @@ own type.
 
 The JAX package has no kernel here: its decode runs the online softmax of
 ``chunked_attention`` in XLA ops, and so does this package's plain route
-(``layers.chunked_attention``, the CPU path and the kernel's yardstick on
-the card).  That route widens the whole ``(B, T, K, hd)`` cache to float32
-and repeats it over the query heads each step; the kernel reads each
-cached row once, in bfloat16 or float32, for all the query heads of its kv
-head, and does float32 arithmetic inside.
+(``decode_attention_plain``: ``ref.chunked_attention`` over one chunk of T
+keys, the CPU path and the kernel's yardstick on the card).  That route
+widens the whole ``(B, T, K, hd)`` cache to float32 and repeats it over the
+query heads each step; the kernel reads each cached row once, in bfloat16
+or float32, for all the query heads of its kv head, and does float32
+arithmetic inside.
 
 What it computes, for the S = 1 query of row b and head h (kv head
 h // (H / K)) at position ``q_offset``: softmax(scale * q k^T) v over the
@@ -40,8 +41,9 @@ import torch
 
 from . import _build
 from .flash_attention import HEAD_DIMS
+from .ref import chunked_attention
 
-__all__ = ["decode_attention_cuda", "decode_plan", "DecodePlan"]
+__all__ = ["decode_attention_cuda", "decode_attention_plain", "decode_plan", "DecodePlan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P_DTYPES = {"float32": 0, "bfloat16": 1}
@@ -143,6 +145,14 @@ def _position(x: int | torch.Tensor | None, default: int, device: torch.device, 
     return x.data_ptr(), 0, int(x.dtype == torch.int64)
 
 
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           **kw) -> torch.Tensor:
+    """The kernel's function (``decode_attention_cuda``'s keywords) in plain
+    torch ops, on the inputs' device: ``chunked_attention`` scoring all T
+    keys as one chunk."""
+    return chunked_attention(q, k, v, kv_chunk=k.shape[1], **kw)
+
+
 def decode_attention_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -198,3 +208,5 @@ def decode_attention_cuda(
 
 
 decode_attention_cuda.launches = 0
+# the split kernel stands for a call (its merge runs at two splits or more)
+decode_attention_cuda.counters = {"decode_attention": ("launches", ("decode_attention_kernel",))}

@@ -179,3 +179,8 @@ def flash_attention_cuda(
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.mma_launches = 0
+# "_mma" counts the tensor-core kernel's launches, a part of the other's
+flash_attention_cuda.counters = {
+    "flash_attention": ("launches", ("flash_attention_kernel", "flash_attention_kernel_mma")),
+    "flash_attention_mma": ("mma_launches", ("flash_attention_kernel_mma",)),
+}

@@ -164,3 +164,6 @@ def mla_decode_cuda(q: torch.Tensor, ckv: torch.Tensor, kr: torch.Tensor, *,
 
 
 mla_decode_cuda.launches = 0
+# a split kernel stands for a call (its merge runs at two splits or more)
+mla_decode_cuda.counters = {
+    "mla_decode": ("launches", ("mla_decode_kernel", "mla_decode_mma_kernel"))}

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .decode_attention import decode_attention_cuda
+from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .mla_decode import mla_decode_cuda, mla_decode_plain
 from .placement_step import (
@@ -25,8 +25,8 @@ from .rglru_scan import rglru_scan_cuda, rglru_scan_plain
 from .rotary import rotary_cuda, rotary_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
-__all__ = ["flash_attention", "mla_decode", "rotary", "ssd_scan", "rglru_scan",
-           "placement_sweep", "placement_sweep_batch"]
+__all__ = ["flash_attention", "decode_attention", "mla_decode", "rotary", "ssd_scan",
+           "rglru_scan", "placement_sweep", "placement_sweep_batch"]
 
 
 def _pick(t: torch.Tensor, plain, kernel, name: str):
@@ -78,49 +78,35 @@ def placement_sweep_batch(
               resume_cost=resume_cost, repay_init=repay_init)
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    q_offset: int | torch.Tensor = 0,
-    kv_len: int | torch.Tensor | None = None,
-    causal: bool = True,
-    window: int = 0,
-    kv_chunk: int = 1024,
-    unroll_causal: bool = False,
-    p_dtype: str = "float32",
-    scale: float | None = None,
-) -> torch.Tensor:
-    """GQA attention of q (B, S, H, hd) against k, v (B, T, K, hd), scores
-    scaled by ``scale`` (1 / sqrt(hd) if None).
-
-    The flash kernel covers the full-sequence cases (train, prefill).
-    Decode (S == 1) on a CUDA tensor runs the decode kernel
-    (``decode_attention_cuda``: the cache in its own type, ``kv_len`` and a
-    tensor ``q_offset`` read on the device), on a CPU tensor
-    ``layers.chunked_attention`` (``kv_chunk`` keys at a time, the wholly
-    masked ones skipped under ``unroll_causal``, p @ v in ``p_dtype``),
-    where the JAX package runs no kernel either.  S > 1 with a runtime
-    ``kv_len`` or a tensor ``q_offset`` (a prefill continuing a cache) goes
-    to ``chunked_attention`` on either device; no benchmark cell runs one.
-    """
-    from ..models.layers import chunked_attention
-
-    S = q.shape[1]
-    if S == 1 and q.device.type == "cuda":
-        q, k, v = (t.contiguous() for t in (q, k, v))  # the kernel reads dense rows
-        return decode_attention_cuda(q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal,
-                                     window=window, p_dtype=p_dtype, scale=scale)
-    if S == 1 or kv_len is not None or not isinstance(q_offset, int):
-        return chunked_attention(
-            q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal, window=window,
-            kv_chunk=min(kv_chunk, k.shape[1]), unroll_causal=unroll_causal, p_dtype=p_dtype,
-            scale=scale,
-        )
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0,
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """GQA attention of q (B, S, H, hd), its first query at position
+    ``q_offset``, against every key of k, v (B, T, K, hd) (train, prefill),
+    scores scaled by ``scale`` (1 / sqrt(hd) if None).  A CUDA tensor runs
+    the flash kernel (``flash_attention_cuda``), a CPU tensor
+    ``flash_attention_plain``."""
     fn = _pick(q, flash_attention_plain, flash_attention_cuda, "flash_attention")
     q, k, v = (t.contiguous() for t in (q, k, v))  # the kernel reads dense rows
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     q_offset: int | torch.Tensor = 0, kv_len: int | torch.Tensor | None = None,
+                     causal: bool = True, window: int = 0, p_dtype: str = "float32",
+                     scale: float | None = None) -> torch.Tensor:
+    """Attention of one query position, q (B, 1, H, hd) at ``q_offset``,
+    against a cache k, v (B, T, K, hd) filled to ``kv_len`` (None: all T),
+    p @ v in ``p_dtype``.  A CUDA tensor runs kernel 6
+    (``decode_attention_cuda``: the cache in its own type, a tensor
+    ``q_offset`` and ``kv_len`` read on the device), a CPU tensor
+    ``decode_attention_plain`` (``ref.chunked_attention`` over one chunk of
+    T keys)."""
+    fn = _pick(q, decode_attention_plain, decode_attention_cuda, "decode_attention")
+    if fn is decode_attention_cuda:
+        q, k, v = (t.contiguous() for t in (q, k, v))  # the kernel reads dense rows
+    return fn(q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal, window=window,
+              p_dtype=p_dtype, scale=scale)
 
 
 def mla_decode(q: torch.Tensor, ckv: torch.Tensor, kr: torch.Tensor, *,
@@ -140,8 +126,8 @@ def rotary(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, theta: flo
     positions: RoPE with ``sections`` None and positions (B, S), M-RoPE
     with positions (B, S, len(sections)).  A CUDA tensor runs kernel 8
     (``rotary_cuda``: both in one launch, in place), a CPU tensor
-    ``rotary_plain`` (``layers.apply_rope`` / ``apply_mrope``, new
-    tensors); either way the caller takes the returned pair."""
+    ``rotary_plain`` (``apply_rope`` / ``apply_mrope``, new tensors);
+    either way the caller takes the returned pair."""
     fn = _pick(q, rotary_plain, rotary_cuda, "rotary")
     return fn(q, k, positions, theta, sections)
 

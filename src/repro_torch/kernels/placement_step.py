@@ -419,6 +419,7 @@ def placement_sweep_cuda(
 
 
 placement_sweep_cuda.launches = 0
+placement_sweep_cuda.counters = {"placement_sweep": ("launches", ("placement_sweep_kernel",))}
 
 
 def placement_sweep_batch_cuda(
@@ -469,3 +470,5 @@ def placement_sweep_batch_cuda(
 
 
 placement_sweep_batch_cuda.launches = 0
+placement_sweep_batch_cuda.counters = {
+    "placement_sweep_batch": ("launches", ("placement_sweep_batch_kernel",))}

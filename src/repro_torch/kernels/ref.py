@@ -3,6 +3,8 @@
 
 * ``attention_ref``   — exact masked-softmax attention (GQA, causal,
   window, ``q_offset``, ``kv_len``), float32 inside.
+* ``chunked_attention`` — the same attention as an online softmax over
+  ``kv_chunk`` keys at a time (the flash-attention algorithm in torch ops).
 * ``ssd_ref``         — Mamba-2 SSD in the naive O(S^2) materialised form.
 * ``ssd_chunked_ref`` — SSD in the chunked dual form (intra-chunk
   quadratic products, inter-chunk state recurrence).
@@ -11,9 +13,11 @@
 * ``rglru_decode_step`` — its single-token step.
 
 They run on the inputs' device.  ``attention_ref`` is the plain version
-of the flash-attention kernel, ``ssd_chunked_ref`` that of the SSD scan
-kernel and ``rglru_ref`` that of the RG-LRU scan kernel
-(``flash_attention.py``, ``ssd_scan.py``, ``rglru_scan.py``).
+of the flash-attention kernel, ``chunked_attention`` over one chunk of T
+keys that of the decode-attention kernel, ``ssd_chunked_ref`` that of the
+SSD scan kernel and ``rglru_ref`` that of the RG-LRU scan kernel
+(``flash_attention.py``, ``decode_attention.py``, ``ssd_scan.py``,
+``rglru_scan.py``).
 """
 
 from __future__ import annotations
@@ -21,12 +25,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..sharding.ctx import cumsum, einsum, reshape
 
 __all__ = [
-    "attention_ref", "ssd_ref", "ssd_chunked_ref", "ssd_decode_step", "rglru_ref",
-    "rglru_decode_step",
+    "attention_ref", "chunked_attention", "ssd_ref", "ssd_chunked_ref", "ssd_decode_step",
+    "rglru_ref", "rglru_decode_step",
 ]
 
 _NEG_INF = -1e30
@@ -63,6 +68,85 @@ def attention_ref(
     s = torch.where(mask, s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = einsum("bkgst,btkd->bskgd", p, v.float())
+    return reshape(out, B, S, H, hd).to(q.dtype)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_offset: int | torch.Tensor = 0,
+    kv_len: int | torch.Tensor | None = None,
+    causal: bool = True,
+    window: int = 0,
+    kv_chunk: int = 1024,
+    unroll_causal: bool = False,
+    p_dtype: str = "float32",
+    scale: float | None = None,
+) -> torch.Tensor:
+    """GQA attention with bounded memory: O(S * kv_chunk) score tiles.
+
+    q: (B, S, H, hd);  k, v: (B, T, K, hd) with H = K * group.
+    ``q_offset``: absolute position of q[0] (prefill continuation /
+    decode).  ``kv_len``: valid prefix length of k/v (decode caches);
+    None means all T positions are valid.  ``window`` > 0 enables
+    sliding-window (local) masking:  qpos - kpos < window.  The p @ v
+    product takes p and v rounded to ``p_dtype`` and sums in float32.
+    Scores are scaled by ``scale`` (1 / sqrt(hd) if None).
+
+    ``unroll_causal`` with an int ``q_offset`` skips the chunks that lie
+    wholly beyond every query's causal horizon or wholly outside every
+    query's window (the JAX package's unrolled loop): such a chunk's
+    scores are all masked, so the result is the same without its work.
+    """
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    g = H // K
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    dev = q.device
+
+    qf = reshape(q.float() * scale, B, S, K, g, hd)
+    nc = -(-T // kv_chunk)
+    Tp = nc * kv_chunk
+    if Tp != T:
+        pad = (0, 0, 0, 0, 0, Tp - T)
+        k, v = F.pad(k, pad), F.pad(v, pad)
+
+    qpos = q_offset + torch.arange(S, device=dev)
+    valid_len = T if kv_len is None else kv_len
+    pdt = getattr(torch, p_dtype)
+
+    # the online softmax's running max, sum and output are float32 by design
+    # (ML attention, not the placement chain)
+    m = torch.full((B, K, g, S), _NEG_INF, dtype=torch.float32, device=dev)  # repro-lint: ignore[P203]  # see above
+    l = torch.zeros((B, K, g, S), dtype=torch.float32, device=dev)  # repro-lint: ignore[P203]  # see above
+    acc = torch.zeros((B, K, g, S, hd), dtype=torch.float32, device=dev)  # repro-lint: ignore[P203]  # see above
+    skip = unroll_causal and isinstance(q_offset, int)
+    for c in range(nc):
+        c0 = c * kv_chunk
+        if skip and ((causal and c0 > q_offset + S - 1)
+                     or (window > 0 and q_offset - (c0 + kv_chunk - 1) >= window)):
+            continue
+        kci, vci = k[:, c0 : c0 + kv_chunk], v[:, c0 : c0 + kv_chunk]
+        s = einsum("bskgd,bckd->bkgsc", qf, kci.float())
+        kpos = c0 + torch.arange(kv_chunk, device=dev)
+        mask = kpos[None, :] < valid_len
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        if window > 0:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
+        s = torch.where(mask, s, _NEG_INF)
+        mc = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - mc[..., None])
+        corr = torch.exp(m - mc)
+        l = l * corr + p.sum(dim=-1)
+        pv = einsum("bkgsc,bckd->bkgsd", p.to(pdt).float(), vci.to(pdt).float())
+        acc = acc * corr[..., None] + pv
+        m = mc
+
+    out = acc / torch.clamp(l[..., None], min=1e-30)  # (B, K, g, S, hd)
+    out = out.permute(0, 3, 1, 2, 4)  # (B, S, K, g, hd)
     return reshape(out, B, S, H, hd).to(q.dtype)
 
 

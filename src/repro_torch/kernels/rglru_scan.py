@@ -202,3 +202,4 @@ def rglru_scan_cuda(x, r_gate, i_gate, log_lambda, *, c: float = 8.0,
 
 
 rglru_scan_cuda.launches = 0
+rglru_scan_cuda.counters = {"rglru_scan": ("launches", ("rglru_chunk_scan_kernel",))}

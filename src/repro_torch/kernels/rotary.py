@@ -1,6 +1,7 @@
 """Rotary position embedding of q and k (RoPE, and Qwen2-VL's multimodal
 M-RoPE) as one CUDA kernel a call (``csrc/rotary.cu``, kernel 8) beside
-its plain torch version, ``layers.apply_rope`` / ``apply_mrope`` on each.
+its plain torch version, ``apply_rope`` / ``apply_mrope`` on each (the
+JAX package's ``layers`` functions, which ``models.layers`` names).
 
 q (B, S, Hq, D) and k (B, S, Hk, D) share their positions: (B, S) for
 RoPE (``sections`` None: one section of all D / 2 frequency slots), or
@@ -28,7 +29,8 @@ import torch
 
 from . import _build
 
-__all__ = ["rotary_cuda", "rotary_plain", "MAX_HALF", "MAX_SECTIONS"]
+__all__ = ["rotary_cuda", "rotary_plain", "make_rope_freqs", "apply_rope", "apply_mrope",
+           "MAX_HALF", "MAX_SECTIONS"]
 
 MAX_HALF, MAX_SECTIONS = 256, 4  # the kernel's shared angle table and section table
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,13 +72,57 @@ def _check(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
     return B, S, half, secs
 
 
+def make_rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,), float32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    # a fill on the device, not a copy from the host: a captured step may run it
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    # x: (..., hd); cos/sin: broadcastable (..., hd//2) — half-split rotation
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Standard RoPE.  x: (B, S, H, hd); positions: (B, S) int."""
+    freqs = make_rope_freqs(x.shape[-1], theta, device=x.device)
+    ang = positions.float()[..., None] * freqs  # (B, S, hd//2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
+def apply_mrope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float, sections: tuple[int, ...]
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  positions: (B, S, 3) = (t, h, w) ids.
+
+    The ``head_dim // 2`` frequency slots are partitioned into ``sections``
+    (e.g. 16/24/24); slot ``i`` rotates by the position stream its section
+    is assigned to.  Text tokens carry t == h == w, reducing exactly to
+    standard RoPE.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"sections {sections} do not cover the {half} frequency slots")
+    freqs = make_rope_freqs(x.shape[-1], theta, device=x.device)  # (half,)
+    pos = positions.float()  # (B, S, 3)
+    ends = [sum(sections[: j + 1]) for j in range(len(sections))]
+    ang = torch.cat([pos[..., j : j + 1] * freqs[end - n : end]  # section j's slots
+                     for j, (n, end) in enumerate(zip(sections, ends, strict=True))],
+                    dim=-1)  # (B, S, half)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
 def rotary_plain(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, theta: float,
                  sections: tuple[int, ...] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """q and k rotated by ``layers.apply_rope`` (``sections`` None) or
+    """q and k rotated by ``apply_rope`` (``sections`` None) or
     ``apply_mrope``: new tensors, on the inputs' device (the CPU path, the
     ``attn_impl="xla"`` route and the kernel's yardstick on the card)."""
-    from ..models.layers import apply_mrope, apply_rope
-
     if sections is None:
         return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
     return apply_mrope(q, positions, theta, sections), apply_mrope(k, positions, theta, sections)
@@ -126,3 +172,4 @@ def rotary_cuda(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, theta
 
 
 rotary_cuda.launches = 0
+rotary_cuda.counters = {"rotary": ("launches", ("rotary_kernel",))}

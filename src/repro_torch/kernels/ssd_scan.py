@@ -240,3 +240,8 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, *, chunk: int, return_state: bool = False
 
 ssd_scan_cuda.launches = 0
 ssd_scan_cuda.mma_launches = 0
+# the bf16 scan runs four passes; its output pass, once a call, stands for it
+ssd_scan_cuda.counters = {
+    "ssd_scan": ("launches", ("ssd_scan_kernel", "ssd_out_kernel")),
+    "ssd_scan_mma": ("mma_launches", ("ssd_out_kernel",)),
+}

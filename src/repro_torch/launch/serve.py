@@ -34,7 +34,7 @@ from ..kernels import counts
 from ..models import Model
 from ..models.model import resolve_device
 from ..serve import ServeConfig, ServeEngine
-from ..serve.graphs import CudaGraphStep
+from ..graphs import CudaGraphStep
 
 __all__ = ["main"]
 

@@ -8,10 +8,12 @@ computed at the prefill.
 
 Full-sequence attention goes through ``transformer._attn_dispatch`` on
 ``ExecConfig.attn_impl``'s route (``kernels.ops.flash_attention`` on
-``"pallas"``, ``layers.chunked_attention`` on ``"xla"``): the encoder's
+``"pallas"``, ``chunked_attention`` on ``"xla"``): the encoder's
 self-attention and the decoder's cross-attention without a mask, the
-decoder's self-attention causally.  Decode (one query) runs
-``layers.chunked_attention``.
+decoder's self-attention causally (``transformer._attend``, as a
+transformer block's).  Decode (one query) takes
+``transformer._cached_attention`` against the self-attention cache and
+``ops.decode_attention`` (on ``"pallas"``) against the cross K/V.
 """
 
 from __future__ import annotations
@@ -21,13 +23,13 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig
-from ..sharding.ctx import einsum, embed_lookup, shard, write_slice
+from ..sharding.ctx import einsum, embed_lookup, shard
 from .layers import rms_norm, swiglu
 from .params import ParamSpec
 from .transformer import (
     ExecConfig,
+    _attend,
     _attn_dispatch,
-    _cached_attention,
     _layer,
     _rotary,
     attn_specs,
@@ -125,15 +127,7 @@ def _dec_block(cfg, ex, p, h, enc_out, pos, *, self_cache, cache_idx):
     # --- causal self-attention ---
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _proj_qkv(cfg, ex, p["attn"], hn, pos)
-    if self_cache is None:
-        out = _attn_dispatch(ex, q, k, v, causal=True, window=0)
-        new_self = (k, v)
-    else:
-        ck, cv = self_cache
-        write_slice(ck, k.to(ck.dtype), cache_idx)
-        write_slice(cv, v.to(cv.dtype), cache_idx)
-        out = _cached_attention(ex, q, ck, cv, cache_idx)
-        new_self = (ck, cv)
+    out, new_self = _attend(ex, q, k, v, cache=self_cache, cache_idx=cache_idx)
     h = h + _out(out, p["attn"]["wo"])
 
     # --- cross-attention ---

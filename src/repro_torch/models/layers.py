@@ -5,12 +5,13 @@ functions in the sibling model files.  The cast points are the JAX
 package's: norms, RoPE, the softmax and the SiLU in float32, the products
 in the activations' type (``cfg.dtype``).
 
-``chunked_attention`` is the online-softmax attention in plain torch ops:
-the ``"xla"`` route, decode (one query against a cache with a runtime
-fill) on CPU tensors, and ``ops.flash_attention`` wherever neither the
-flash kernel nor the decode kernel applies.  The
-MoE layer's expert products are batched matrix products (cuBLAS on the
-card), as the JAX package runs them outside any Pallas kernel.
+The plain attention and rotary functions live beside their kernels and
+are named here as the JAX package's ``layers`` names them:
+``chunked_attention``, the online-softmax attention in plain torch ops
+(``kernels.ref``), and ``make_rope_freqs``, ``apply_rope`` and
+``apply_mrope`` (``kernels.rotary``).  The MoE layer's expert products are
+batched matrix products (cuBLAS on the card), as the JAX package runs them
+outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ref import chunked_attention
+from ..kernels.rotary import apply_mrope, apply_rope, make_rope_freqs
 from ..sharding.ctx import einsum, expertwise, mean, reshape, rowwise, shard
 
 __all__ = [
@@ -36,64 +39,10 @@ __all__ = [
     "dropless_moe",
 ]
 
-_NEG_INF = -1e30
-
-
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     rms = torch.sqrt(mean(xf * xf, -1, keepdim=True) + eps)
     return ((xf / rms) * (1.0 + scale.float())).to(x.dtype)
-
-
-# ---------------------------------------------------------------------------
-# Rotary position embeddings (RoPE and Qwen2-VL's multimodal M-RoPE)
-# ---------------------------------------------------------------------------
-
-
-def make_rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies, shape (head_dim // 2,), float32."""
-    half = head_dim // 2
-    exps = torch.arange(half, dtype=torch.float32, device=device) / half
-    # a fill on the device, not a copy from the host: a captured step may run it
-    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
-
-
-def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    # x: (..., hd); cos/sin: broadcastable (..., hd//2) — half-split rotation
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Standard RoPE.  x: (B, S, H, hd); positions: (B, S) int."""
-    freqs = make_rope_freqs(x.shape[-1], theta, device=x.device)
-    ang = positions.float()[..., None] * freqs  # (B, S, hd//2)
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    return _rotate(x, cos, sin)
-
-
-def apply_mrope(
-    x: torch.Tensor, positions: torch.Tensor, theta: float, sections: tuple[int, ...]
-) -> torch.Tensor:
-    """Qwen2-VL multimodal RoPE.  positions: (B, S, 3) = (t, h, w) ids.
-
-    The ``head_dim // 2`` frequency slots are partitioned into ``sections``
-    (e.g. 16/24/24); slot ``i`` rotates by the position stream its section
-    is assigned to.  Text tokens carry t == h == w, reducing exactly to
-    standard RoPE.
-    """
-    half = x.shape[-1] // 2
-    if sum(sections) != half:
-        raise ValueError(f"sections {sections} do not cover the {half} frequency slots")
-    freqs = make_rope_freqs(x.shape[-1], theta, device=x.device)  # (half,)
-    pos = positions.float()  # (B, S, 3)
-    ends = [sum(sections[: j + 1]) for j in range(len(sections))]
-    ang = torch.cat([pos[..., j : j + 1] * freqs[end - n : end]  # section j's slots
-                     for j, (n, end) in enumerate(zip(sections, ends, strict=True))],
-                    dim=-1)  # (B, S, half)
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    return _rotate(x, cos, sin)
 
 
 def decode_positions(idx: int | torch.Tensor, shape: tuple[int, ...], device) -> torch.Tensor:
@@ -103,88 +52,6 @@ def decode_positions(idx: int | torch.Tensor, shape: tuple[int, ...], device) ->
     if isinstance(idx, torch.Tensor):
         return idx.to(device=device, dtype=torch.long).expand(shape)
     return torch.full(shape, idx, dtype=torch.long, device=device)
-
-
-# ---------------------------------------------------------------------------
-# Attention — chunked online softmax (the flash-attention algorithm in torch ops)
-# ---------------------------------------------------------------------------
-
-
-def chunked_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    q_offset: int | torch.Tensor = 0,
-    kv_len: int | torch.Tensor | None = None,
-    causal: bool = True,
-    window: int = 0,
-    kv_chunk: int = 1024,
-    unroll_causal: bool = False,
-    p_dtype: str = "float32",
-    scale: float | None = None,
-) -> torch.Tensor:
-    """GQA attention with bounded memory: O(S * kv_chunk) score tiles.
-
-    q: (B, S, H, hd);  k, v: (B, T, K, hd) with H = K * group.
-    ``q_offset``: absolute position of q[0] (prefill continuation /
-    decode).  ``kv_len``: valid prefix length of k/v (decode caches);
-    None means all T positions are valid.  ``window`` > 0 enables
-    sliding-window (local) masking:  qpos - kpos < window.  The p @ v
-    product takes p and v rounded to ``p_dtype`` and sums in float32.
-    Scores are scaled by ``scale`` (1 / sqrt(hd) if None).
-
-    ``unroll_causal`` with an int ``q_offset`` skips the chunks that lie
-    wholly beyond every query's causal horizon or wholly outside every
-    query's window (the JAX package's unrolled loop): such a chunk's
-    scores are all masked, so the result is the same without its work.
-    """
-    B, S, H, hd = q.shape
-    T, K = k.shape[1], k.shape[2]
-    g = H // K
-    scale = 1.0 / math.sqrt(hd) if scale is None else scale
-    dev = q.device
-
-    qf = reshape(q.float() * scale, B, S, K, g, hd)
-    nc = -(-T // kv_chunk)
-    Tp = nc * kv_chunk
-    if Tp != T:
-        pad = (0, 0, 0, 0, 0, Tp - T)
-        k, v = F.pad(k, pad), F.pad(v, pad)
-
-    qpos = q_offset + torch.arange(S, device=dev)
-    valid_len = T if kv_len is None else kv_len
-    pdt = getattr(torch, p_dtype)
-
-    m = torch.full((B, K, g, S), _NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, K, g, S), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, K, g, S, hd), dtype=torch.float32, device=dev)
-    skip = unroll_causal and isinstance(q_offset, int)
-    for c in range(nc):
-        c0 = c * kv_chunk
-        if skip and ((causal and c0 > q_offset + S - 1)
-                     or (window > 0 and q_offset - (c0 + kv_chunk - 1) >= window)):
-            continue
-        kci, vci = k[:, c0 : c0 + kv_chunk], v[:, c0 : c0 + kv_chunk]
-        s = einsum("bskgd,bckd->bkgsc", qf, kci.float())
-        kpos = c0 + torch.arange(kv_chunk, device=dev)
-        mask = kpos[None, :] < valid_len
-        if causal:
-            mask = mask & (qpos[:, None] >= kpos[None, :])
-        if window > 0:
-            mask = mask & (qpos[:, None] - kpos[None, :] < window)
-        s = torch.where(mask, s, _NEG_INF)
-        mc = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - mc[..., None])
-        corr = torch.exp(m - mc)
-        l = l * corr + p.sum(dim=-1)
-        pv = einsum("bkgsc,bckd->bkgsd", p.to(pdt).float(), vci.to(pdt).float())
-        acc = acc * corr[..., None] + pv
-        m = mc
-
-    out = acc / torch.clamp(l[..., None], min=1e-30)  # (B, K, g, S, hd)
-    out = out.permute(0, 3, 1, 2, 4)  # (B, S, K, g, hd)
-    return reshape(out, B, S, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

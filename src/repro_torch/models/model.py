@@ -22,17 +22,21 @@ shapes and dtypes that allocate nothing: ``Model.abstract_params`` /
 ``abstract_state`` and ``train_batch_specs`` / ``prefill_batch_specs`` /
 ``decode_input_specs``.
 
-It dispatches on ``cfg.family``: ``dense``, ``moe`` and ``vlm`` to
-``transformer``, ``ssm`` to ``ssm``, ``hybrid`` to ``rglru``, ``encdec`` to
-``encdec``.  The parameters live on ``device``, ``"cuda"`` unless the
-caller asks for another: building a model without ``device=`` on a host
-with no card raises.
+It dispatches on ``cfg.family`` through one table, ``FAMILIES``:
+``dense``, ``moe`` and ``vlm`` to ``transformer``, ``ssm`` to ``ssm``,
+``hybrid`` to ``rglru``, ``encdec`` to ``encdec``; each ``Family`` record
+also says what the serving engine asks of a model (``Model.kv_caches``,
+``grows``, ``traced``, ``prompt_len``).  The parameters live on
+``device``, ``"cuda"`` unless the caller asks for another: building a
+model without ``device=`` on a host with no card raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import operator
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch import nn
@@ -53,10 +57,86 @@ __all__ = [
     "prefill_batch_specs",
     "decode_input_specs",
     "VLM_PATCHES",
+    "FAMILIES",
+    "Family",
+    "prefill_launches",
+    "decode_launches",
 ]
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 VLM_PATCHES = 256  # vision-frontend stub: fixed patch-embedding prefix
+
+
+def _meta(shape, dtype: str) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=getattr(torch, dtype), device="meta")
+
+
+def _token_batch(cfg: ModelConfig, B: int, S: int) -> dict[str, Any]:
+    return {"tokens": _meta((B, S), "int32"), "labels": _meta((B, S), "int32")}
+
+
+def _encdec_batch(cfg: ModelConfig, B: int, S: int) -> dict[str, Any]:
+    return {"enc_embeds": _meta((B, S, cfg.d_model), cfg.dtype), **_token_batch(cfg, B, S)}
+
+
+def _vlm_batch(cfg: ModelConfig, B: int, S: int) -> dict[str, Any]:
+    P = VLM_PATCHES
+    return {
+        "tokens": _meta((B, S - P), "int32"),
+        "patch_embeds": _meta((B, P, cfg.d_model), cfg.dtype),
+        "positions": _meta((B, S, 3), "int32"),
+        "labels": _meta((B, S), "int32"),
+    }
+
+
+def _fixed_size(state) -> tuple:
+    """No leaf grows along T: conv tails, recurrent states, ring caches."""
+    return ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """One model family: its module's functions, and what serving asks of
+    its state and batches."""
+
+    specs: Callable  # (cfg) -> the parameter spec tree
+    forward: Callable  # (cfg, ex, params, batch) -> (logits, aux)
+    prefill: Callable  # (cfg, ex, params, batch) -> (logits, aux, state)
+    decode_step: Callable  # (cfg, ex, params, state, tokens, idx) -> (logits, state)
+    init_state: Callable  # (cfg, batch_size, max_len, enc_len, device) -> the zero state
+    kv_caches: Callable = _fixed_size  # (state) -> its KV caches (L, B, T, K, hd) growing along T
+    traced: bool = False  # the blocks hold device spans
+    batch_specs: Callable = _token_batch  # (cfg, B, S) -> a train batch as meta tensors
+    prefix: Callable = lambda batch: 0  # (batch) -> prompt positions ahead of its tokens
+    decode_attentions: int = 0  # kernel attentions a layer runs in a decode step
+
+
+_LM = Family(
+    transformer.lm_specs, transformer.lm_forward,
+    functools.partial(transformer.lm_forward, return_cache=True), transformer.lm_decode_step,
+    lambda cfg, b, t, e, dev: transformer.init_cache(cfg, b, t, device=dev),
+    kv_caches=tuple, traced=True, decode_attentions=1)
+
+FAMILIES: dict[str, Family] = {
+    "dense": _LM,
+    "moe": _LM,
+    "ssm": Family(ssm.ssm_specs, ssm.ssm_forward,
+                  functools.partial(ssm.ssm_forward, return_state=True), ssm.ssm_decode_step,
+                  lambda cfg, b, t, e, dev: ssm.init_ssm_state(cfg, b, device=dev)),
+    "hybrid": Family(rglru.hybrid_specs, rglru.hybrid_forward,
+                     functools.partial(rglru.hybrid_forward, return_state=True),
+                     rglru.hybrid_decode_step,
+                     lambda cfg, b, t, e, dev: rglru.init_hybrid_state(cfg, b, device=dev)),
+    "encdec": Family(encdec.encdec_specs, encdec.encdec_forward,
+                     functools.partial(encdec.encdec_forward, return_cache=True),
+                     encdec.encdec_decode_step,
+                     lambda cfg, b, t, e, dev: encdec.init_encdec_cache(cfg, b, t, e or t,
+                                                                         device=dev),
+                     kv_caches=lambda state: tuple(state["self"]), batch_specs=_encdec_batch,
+                     decode_attentions=2),  # self- and cross-attention
+    "vlm": dataclasses.replace(_LM, batch_specs=_vlm_batch,
+                               prefix=lambda batch: batch["patch_embeds"].shape[1]),
+}
+PORTED_FAMILIES = tuple(FAMILIES)
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -122,6 +202,13 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.ex = ex or ExecConfig()
+        family = self._family = FAMILIES[cfg.family]
+        # what the serving engine asks, plain attributes for its per-step path:
+        # the decode state's KV caches that grow along T (a transformer's two,
+        # an enc-dec model's self-attention pair), whether there are any, and
+        # whether the blocks hold device spans
+        self.kv_caches, self.traced = family.kv_caches, family.traced
+        self.grows = family.kv_caches is not _fixed_size
         self.device = resolve_device(device)
         if params is None:
             gen = generator or torch.Generator(self.device).manual_seed(0)
@@ -132,13 +219,7 @@ class Model(nn.Module):
 
     # ---- parameters -----------------------------------------------------
     def specs(self) -> dict:
-        if self.cfg.family == "ssm":
-            return ssm.ssm_specs(self.cfg)
-        if self.cfg.family == "hybrid":
-            return rglru.hybrid_specs(self.cfg)
-        if self.cfg.family == "encdec":
-            return encdec.encdec_specs(self.cfg)
-        return transformer.lm_specs(self.cfg)
+        return self._family.specs(self.cfg)
 
     @property
     def params(self) -> dict:
@@ -168,15 +249,7 @@ class Model(nn.Module):
     # ---- training / full forward ----------------------------------------
     def _full(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits, aux) of the full sequence."""
-        cfg, ex = self.cfg, self.ex
-        params = _for_use(params)
-        if cfg.family == "ssm":
-            return ssm.ssm_forward(cfg, ex, params, batch)
-        if cfg.family == "hybrid":
-            return rglru.hybrid_forward(cfg, ex, params, batch)
-        if cfg.family == "encdec":
-            return encdec.encdec_forward(cfg, ex, params, batch)
-        return transformer.lm_forward(cfg, ex, params, batch)
+        return self._family.forward(self.cfg, self.ex, _for_use(params), batch)
 
     def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """Next-token CE of ``logits[:, :-1]`` against ``labels[:, 1:]`` plus
@@ -199,23 +272,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: dict):
         """Returns (last_token_logits, decode_state)."""
-        params = _for_use(self.params)
-        if self.cfg.family == "ssm":
-            logits, _, state = ssm.ssm_forward(
-                self.cfg, self.ex, params, batch, return_state=True
-            )
-        elif self.cfg.family == "hybrid":
-            logits, _, state = rglru.hybrid_forward(
-                self.cfg, self.ex, params, batch, return_state=True
-            )
-        elif self.cfg.family == "encdec":
-            logits, _, state = encdec.encdec_forward(
-                self.cfg, self.ex, params, batch, return_cache=True
-            )
-        else:
-            logits, _, state = transformer.lm_forward(
-                self.cfg, self.ex, params, batch, return_cache=True
-            )
+        logits, _, state = self._family.prefill(self.cfg, self.ex, _for_use(self.params), batch)
         return logits[:, -1].clone(), state  # a copy: the (B, S, V) logits are freed
 
     @torch.no_grad()
@@ -229,22 +286,21 @@ class Model(nn.Module):
         params = _for_use(self.params)
         if not isinstance(idx, torch.Tensor):
             idx = operator.index(idx)  # numpy ints too
-        if self.cfg.family == "ssm":
-            return ssm.ssm_decode_step(self.cfg, self.ex, params, state, tokens, idx)
-        if self.cfg.family == "hybrid":
-            return rglru.hybrid_decode_step(self.cfg, self.ex, params, state, tokens, idx)
-        if self.cfg.family == "encdec":
-            return encdec.encdec_decode_step(self.cfg, self.ex, params, state, tokens, idx)
-        return transformer.lm_decode_step(self.cfg, self.ex, params, state, tokens, idx)
+        return self._family.decode_step(self.cfg, self.ex, params, state, tokens, idx)
 
     def init_state(self, batch_size: int, max_len: int, enc_len: int | None = None):
         """The zero decode state; an enc-dec model's cross cache holds
         ``enc_len`` encoder positions (``max_len`` if not given)."""
-        return _init_state(self.cfg, batch_size, max_len, enc_len, self.device)
+        return self._family.init_state(self.cfg, batch_size, max_len, enc_len, self.device)
 
     def abstract_state(self, batch_size: int, max_len: int, enc_len: int | None = None):
         """``init_state``'s tree as meta tensors."""
-        return _init_state(self.cfg, batch_size, max_len, enc_len, torch.device("meta"))
+        return self._family.init_state(self.cfg, batch_size, max_len, enc_len,
+                                       torch.device("meta"))
+
+    def prompt_len(self, batch: dict) -> int:
+        """The positions a prefill of ``batch`` fills."""
+        return batch["tokens"].shape[1] + self._family.prefix(batch)
 
 
 def _for_use(params: dict) -> dict:
@@ -253,17 +309,6 @@ def _for_use(params: dict) -> dict:
     ``activation_sharding``, the identity otherwise); the layer stacks are
     gathered a layer at a time by ``transformer._layer``."""
     return {k: v if isinstance(v, dict) else gather_for_use(v) for k, v in params.items()}
-
-
-def _init_state(cfg: ModelConfig, batch_size: int, max_len: int, enc_len: int | None, device):
-    if cfg.family == "ssm":
-        return ssm.init_ssm_state(cfg, batch_size, device=device)
-    if cfg.family == "hybrid":  # fixed-size: max_len is not used
-        return rglru.init_hybrid_state(cfg, batch_size, device=device)
-    if cfg.family == "encdec":
-        return encdec.init_encdec_cache(cfg, batch_size, max_len, enc_len or max_len,
-                                        device=device)
-    return transformer.init_cache(cfg, batch_size, max_len, device=device)
 
 
 def _map(fn, tree: dict) -> dict:
@@ -282,31 +327,8 @@ def _to(tree: dict, device: torch.device, dtype: torch.dtype | None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _meta(shape, dtype: str) -> torch.Tensor:
-    return torch.empty(tuple(shape), dtype=getattr(torch, dtype), device="meta")
-
-
 def train_batch_specs(cfg: ModelConfig, shape: InputShape) -> dict[str, Any]:
-    B, S = shape.global_batch, shape.seq_len
-    emb_dt = cfg.dtype
-    if cfg.family == "encdec":
-        return {
-            "enc_embeds": _meta((B, S, cfg.d_model), emb_dt),
-            "tokens": _meta((B, S), "int32"),
-            "labels": _meta((B, S), "int32"),
-        }
-    if cfg.family == "vlm":
-        P = VLM_PATCHES
-        return {
-            "tokens": _meta((B, S - P), "int32"),
-            "patch_embeds": _meta((B, P, cfg.d_model), emb_dt),
-            "positions": _meta((B, S, 3), "int32"),
-            "labels": _meta((B, S), "int32"),
-        }
-    return {
-        "tokens": _meta((B, S), "int32"),
-        "labels": _meta((B, S), "int32"),
-    }
+    return FAMILIES[cfg.family].batch_specs(cfg, shape.global_batch, shape.seq_len)
 
 
 def prefill_batch_specs(cfg: ModelConfig, shape: InputShape) -> dict[str, Any]:
@@ -321,5 +343,46 @@ def decode_input_specs(cfg: ModelConfig, shape: InputShape) -> dict[str, Any]:
     return {
         "tokens": _meta((B,), "int32"),
         "idx": _meta((), "int32"),
-        "state": _init_state(cfg, B, T, min(T, 4096), torch.device("meta")),
+        "state": FAMILIES[cfg.family].init_state(cfg, B, T, min(T, 4096), torch.device("meta")),
     }
+
+
+# ---------------------------------------------------------------------------
+# The kernel launches a model's steps make (by ``kernels.counts``' names)
+# ---------------------------------------------------------------------------
+
+
+def _rotary_layers(cfg) -> int:
+    """Layers whose self-attention rotates q and k: every attention layer
+    of a model with RoPE or M-RoPE (the hybrid's local attention always;
+    an enc-dec's decoder, whose cross-attention does not)."""
+    if cfg.family in ("hybrid", "ssm"):
+        return cfg.layer_kinds().count("attn")
+    rotates = cfg.rope == "rope" if cfg.family == "encdec" else cfg.rope != "none"
+    return cfg.n_layers if rotates else 0
+
+
+def prefill_launches(cfg) -> dict[str, int]:
+    """A prefill's launches of a model of config ``cfg``: one a layer by
+    the layer's kind (flash attention, SSD scan, RG-LRU scan), the rotary
+    kernel one a layer that rotates; an enc-dec model's flash attention
+    and rotary also one an encoder layer, and its flash attention two a
+    decoder layer (self- and cross-attention)."""
+    kinds = cfg.layer_kinds()
+    want = {"flash_attention": kinds.count("attn"), "ssd_scan": kinds.count("ssm"),
+            "rglru_scan": kinds.count("rec"), "rotary": _rotary_layers(cfg)}
+    if cfg.family == "encdec":
+        want["flash_attention"] += cfg.enc_layers + cfg.n_layers
+        want["rotary"] += cfg.enc_layers if want["rotary"] else 0
+    return {k: n for k, n in want.items() if n}
+
+
+def decode_launches(cfg, steps: int) -> dict[str, int]:
+    """``steps`` decode steps' launches of a model of config ``cfg``: the
+    family's decode attentions a layer (``Family.decode_attentions``), as
+    latent decode under latent attention; the rotary kernel one a layer
+    that rotates."""
+    n = FAMILIES[cfg.family].decode_attentions * cfg.n_layers
+    name = "mla_decode" if getattr(cfg, "mla", False) else "decode_attention"
+    out = {name: n * steps, "rotary": _rotary_layers(cfg) * steps}
+    return {k: v for k, v in out.items() if v}

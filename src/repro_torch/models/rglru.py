@@ -10,7 +10,7 @@ The full-sequence forward runs the RG-LRU scan and local attention on
 ``ExecConfig.attn_impl``'s route: ``"pallas"`` runs
 ``kernels.ops.rglru_scan`` and ``kernels.ops.flash_attention(window=...)``
 (the kernels on CUDA tensors, their plain versions on CPU tensors),
-``"xla"`` (training's) ``ref.rglru_ref`` and ``layers.chunked_attention``.
+``"xla"`` (training's) ``ref.rglru_ref`` and ``ref.chunked_attention``.
 Decode is bounded: a recurrent layer carries its conv tail and a float32
 (B, W) state and runs ``ref.rglru_decode_step``; an attention layer keeps
 a ring-buffer KV cache of ``local_window`` slots and attends over it in
@@ -29,8 +29,9 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels import ref as kref
+from ..kernels.ref import _NEG_INF
 from ..sharding.ctx import einsum, embed_lookup, reshape, shard, write_slice
-from .layers import _NEG_INF, decode_positions, rms_norm, swiglu
+from .layers import decode_positions, rms_norm, swiglu
 from .params import ParamSpec
 from .ssm import _causal_conv, _conv_step, _head
 from .transformer import ExecConfig, _attn_dispatch, _layer, _rotary, attn_specs, mlp_specs

@@ -3,16 +3,15 @@
 Layer-stacked parameters (a leading ``(L, ...)`` axis, the JAX package's
 tree), run by a Python loop over layers, and a KV-cache decode path.
 Full-sequence attention goes through ``_attn_dispatch``: on the
-``"pallas"`` route (the default) ``kernels.ops.flash_attention``, whose
-tensors' device picks the flash kernel (CUDA) or its plain version (CPU);
-on the ``"xla"`` route ``layers.chunked_attention``, plain differentiable
-torch on any device, which training takes.  Decode takes the same
-routes: on ``"pallas"`` the decode kernel on CUDA tensors
-(``kernels.decode_attention``) and ``layers.chunked_attention`` on CPU
-tensors, on ``"xla"`` ``layers.chunked_attention``.  The VLM takes
-precomputed patch embeddings as a prefix of the token embeddings (the
-vision frontend is a stub, as in the JAX package) and 3-D (t, h, w)
-positions for M-RoPE.
+``"pallas"`` route (the default) ``kernels.ops.flash_attention`` (one
+query: ``ops.decode_attention``), whose tensors' device picks the kernel
+(CUDA) or its plain version (CPU); on the ``"xla"`` route
+``chunked_attention``, plain differentiable torch on any device, which
+training takes.  Decode against a cache (``_cached_attention``) takes
+``ops.decode_attention`` on ``"pallas"``, ``chunked_attention`` on
+``"xla"`` and wherever no kernel applies.  The VLM takes precomputed patch
+embeddings as a prefix of the token embeddings (the vision frontend is a
+stub, as in the JAX package) and 3-D (t, h, w) positions for M-RoPE.
 
 Each block's work is named by ``trace`` spans, timed on the device with
 tracing on (and nothing without): ``attn.qkv`` (``ln1``, the q/k/v
@@ -69,8 +68,8 @@ from ..sharding.ctx import (
     shard,
     write_slice,
 )
+from ..kernels.ref import chunked_attention
 from .layers import (
-    chunked_attention,
     decode_positions,
     dropless_moe,
     moe_aux_loss,
@@ -362,12 +361,14 @@ def _attn_dispatch(ex: ExecConfig, q, k, v, *, causal: bool, window: int,
     ``ex.attn_impl``'s route; one query scores all T keys at once, as the
     JAX package's decode does.  ``scale`` None: 1 / sqrt(hd)."""
     S, T = q.shape[1], k.shape[1]
-    chunk = T if S == 1 else min(ex.kv_chunk, T)
     if ex.attn_impl == "pallas":
-        return ops.flash_attention(q, k, v, q_offset=0, causal=causal, window=window,
-                                   kv_chunk=chunk, p_dtype=ex.attn_p_dtype, scale=scale)
+        if S == 1:
+            return ops.decode_attention(q, k, v, causal=causal, window=window,
+                                        p_dtype=ex.attn_p_dtype, scale=scale)
+        return ops.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
     # no chunk here lies past the last query (ex.unroll_causal: nothing to skip)
-    return chunked_attention(q, k, v, q_offset=0, causal=causal, window=window, kv_chunk=chunk,
+    return chunked_attention(q, k, v, q_offset=0, causal=causal, window=window,
+                             kv_chunk=T if S == 1 else min(ex.kv_chunk, T),
                              p_dtype=ex.attn_p_dtype, scale=scale)
 
 
@@ -388,13 +389,18 @@ def _cached_attention(ex: ExecConfig, q, ck, cv, cache_idx) -> torch.Tensor:
     """The step's queries at ``cache_idx`` against a ``(B, T, K, hd)``
     cache filled to ``cache_idx + S``: one chunk of T keys for decode,
     ``kv_chunk`` keys a chunk, the unfilled ones skipped, under
-    ``ex.unroll_causal`` (see ``ExecConfig``), on ``ex.attn_impl``'s route."""
+    ``ex.unroll_causal`` (see ``ExecConfig``), on ``ex.attn_impl``'s route.
+    No kernel takes more than one query against a cache, nor the skipping
+    on CPU tensors (on the card kernel 6 reads the filled keys alone)."""
     S, T = q.shape[1], ck.shape[1]
+    k, v = ck.to(q.dtype), cv.to(q.dtype)
     unroll = ex.unroll_causal and isinstance(cache_idx, int)
-    attend = ops.flash_attention if ex.attn_impl == "pallas" else chunked_attention
-    return attend(
-        q, ck.to(q.dtype), cv.to(q.dtype), q_offset=cache_idx, kv_len=cache_idx + S,
-        causal=True, window=0, kv_chunk=T if S == 1 and not unroll else min(ex.kv_chunk, T),
+    if ex.attn_impl == "pallas" and S == 1 and not (unroll and q.device.type != "cuda"):
+        return ops.decode_attention(q, k, v, q_offset=cache_idx, kv_len=cache_idx + 1,
+                                    p_dtype=ex.attn_p_dtype)
+    return chunked_attention(
+        q, k, v, q_offset=cache_idx, kv_len=cache_idx + S, causal=True, window=0,
+        kv_chunk=T if S == 1 and not unroll else min(ex.kv_chunk, T),
         unroll_causal=unroll, p_dtype=ex.attn_p_dtype,
     )
 

@@ -3,15 +3,16 @@
 The engine prefills a batch of prompts together, then decodes with a
 fixed-size state: KV caches are grown to ``max_len`` after the prefill so
 every decode step has the same shapes (the SSM and hybrid states are
-fixed-size already).  It runs on the device of the model's parameters
+fixed-size already; the engine asks the model which leaves grow,
+``Model.kv_caches``).  It runs on the device of the model's parameters
 (``Model(device=...)``, CUDA unless the caller asks for the CPU); the
 prefill goes through the flash-attention, SSD-scan or RG-LRU-scan kernel
-there, decode through plain torch ops.
+there, decode through the decode-attention kernels.
 
 ``ServeEngine(model, config, jit=True)``, the default as in the JAX
 package, runs each step as one program: on a CUDA model the prefill and
 the decode step are each captured as a CUDA graph per input signature
-(``graphs.CudaGraphStep``, the counterpart of ``jax.jit``), the kernels
+(``repro_torch.graphs.CudaGraphStep``, the counterpart of ``jax.jit``), the kernels
 launched inside the captured prefill, and decode replays one graph for
 every position (``idx`` a 0-d int32 on the card, refilled each step) over
 one ``max_len`` state updated in place (the counterpart of the
@@ -43,7 +44,7 @@ import torch.nn.functional as F
 from .. import trace
 from .._tree import leaves, unflatten
 from ..models.model import Model
-from .graphs import CudaGraphStep
+from ..graphs import CudaGraphStep
 
 __all__ = ["ServeConfig", "ServeEngine", "make_prefill_step", "make_decode_step"]
 
@@ -57,40 +58,19 @@ class ServeConfig:
 
 def make_prefill_step(model: Model) -> Callable:
     """(batch) -> (last_logits, state)."""
-
-    def prefill(batch):
-        return model.prefill(batch)
-
-    return prefill
+    return model.prefill
 
 
 def make_decode_step(model: Model) -> Callable:
     """(state, tokens, idx) -> (logits, state); updates the state in place.
     ``idx`` is an int or a 0-d int tensor on the model's device."""
-
-    def decode(state, tokens, idx):
-        return model.decode_step(state, tokens, idx)
-
-    return decode
+    return model.decode_step
 
 
-def _kv_caches(state: Any, family: str) -> tuple:
-    """The state's KV caches ``(L, B, T, K, hd)`` that grow along T: a
-    transformer's two, an enc-dec model's self-attention pair (its cross
-    caches stay as the encoder left them).  The ssm and hybrid states
-    (conv tails, recurrent states, the hybrid's ring caches of
-    ``local_window`` slots) are fixed-size: none."""
-    if family in ("dense", "moe", "vlm"):
-        return tuple(state)
-    if family == "encdec":
-        return tuple(state["self"])
-    return ()
-
-
-def _pad_cache_to(state: Any, family: str, max_len: int, buffers: dict | None = None) -> Any:
-    """Grow a prefill's KV caches (``_kv_caches``) to ``max_len`` positions
-    (zeros after the prompt; a longer prompt's stay as they are); every
-    other leaf passes through.
+def _pad_cache_to(state: Any, model: Model, max_len: int, buffers: dict | None = None) -> Any:
+    """Grow a prefill's KV caches (``model.kv_caches``) to ``max_len``
+    positions (zeros after the prompt; a longer prompt's stay as they are);
+    every other leaf passes through.
 
     With ``buffers`` (a dict), the result's leaves are the buffers kept
     there by their place in the tree, shape and dtype (made at their first
@@ -98,7 +78,7 @@ def _pad_cache_to(state: Any, family: str, max_len: int, buffers: dict | None = 
     zeros after them, every other leaf whole.  Prefills of any prompt
     length then fill the same ``max_len`` buffers, as a captured prefill
     does."""
-    grows = {id(t) for t in _kv_caches(state, family)}
+    grows = {id(t) for t in model.kv_caches(state)}
     if not grows and buffers is None:
         return state  # a fixed-size state passes through as it is
 
@@ -146,22 +126,22 @@ class ServeEngine:
         self.device = model.device
         self.jit = jit
         self._captured = jit and self.device.type == "cuda"
-        family, max_len = model.cfg.family, self.config.max_len
+        max_len = self.config.max_len
         prefill, decode = make_prefill_step(model), make_decode_step(model)
         self._buffers: dict | None = {} if self._captured else None  # the decode states
 
         def prefill_step(batch):
             last, state = prefill(batch)
-            return last, _pad_cache_to(state, family, max_len, self._buffers)
+            return last, _pad_cache_to(state, model, max_len, self._buffers)
 
         self._prefill, self._decode = prefill_step, decode
         if self._captured:
             pool = torch.cuda.graph_pool_handle()
-            spans = family in ("dense", "moe", "vlm")  # the model's blocks hold device spans
-            self._prefill = CudaGraphStep(prefill_step, self.device, pool=pool, spans=spans)
+            self._prefill = CudaGraphStep(prefill_step, self.device, pool=pool,
+                                          spans=model.traced)
             # the state and the position are the graph's own buffers (donated)
             self._decode = CudaGraphStep(decode, self.device, pool=pool, donate=(0, 2),
-                                         spans=spans)
+                                         spans=model.traced)
             self._idx = torch.zeros((), dtype=torch.int32, device=self.device)
 
     def _sample(self, logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -192,7 +172,7 @@ class ServeEngine:
         cache raises here; a tensor one is not checked (that would read the
         card), and past the cache a captured step's write is a device-side
         fault."""
-        caches = _kv_caches(state, self.model.cfg.family)
+        caches = self.model.kv_caches(state)
         if not isinstance(idx, torch.Tensor) and caches and not 0 <= idx < caches[0].shape[2]:
             raise IndexError(f"decode position {idx} is outside the KV cache's "
                              f"{caches[0].shape[2]} positions")
@@ -227,12 +207,9 @@ class ServeEngine:
                   generator: torch.Generator | None) -> torch.Tensor:
         batch = self._on_device(batch)
         gen = generator or torch.Generator(self.device).manual_seed(0)
-        prompt_len = batch["tokens"].shape[1]
-        if self.model.cfg.family == "vlm":
-            prompt_len += batch["patch_embeds"].shape[1]
+        prompt_len = self.model.prompt_len(batch)
         room = max(self.config.max_len, prompt_len)
-        grows = self.model.cfg.family not in ("ssm", "hybrid")  # their states are fixed-size
-        if grows and prompt_len + max_new_tokens - 1 > room:
+        if self.model.grows and prompt_len + max_new_tokens - 1 > room:
             # checked here: past the cache, a captured step's write is a device-side fault
             raise ValueError(f"{prompt_len} prompt positions and {max_new_tokens} new tokens "
                              f"need {prompt_len + max_new_tokens - 1} cache positions; the "

@@ -11,7 +11,7 @@ checkpoint reproduces the run's loss curve bit for bit.
 keywords and defaults.  On a CUDA model ``jit=True`` captures the whole
 step (forward, checkpoint recompute, backward, error feedback, clip,
 update, step counter) as one CUDA graph for each batch signature
-(``serve.graphs.CudaGraphStep``, the port's ``jax.jit``): the first step
+(``graphs.CudaGraphStep``, the port's ``jax.jit``): the first step
 of a signature runs eagerly as the warm-up, then captures, so its
 ``step_time`` holds both, as the reference's first step holds its
 compilation; later steps replay the graph with no host dispatch.
@@ -39,7 +39,7 @@ import torch
 from .._tree import leaves, tree_map
 from ..ckpt.checkpoint import CheckpointManager
 from ..ft.straggler import StragglerDetector
-from ..serve.graphs import CudaGraphStep
+from ..graphs import CudaGraphStep
 
 from .step import TrainState, init_train_state, make_train_step
 

@@ -114,16 +114,18 @@ def test_attention_ref_matches_reference_with_kvlen_and_offset():
 
 
 def test_flash_attention_routes_decode_to_chunked():
-    """S == 1, a runtime kv_len or a tensor q_offset take chunked_attention,
-    as the reference's ops.flash_attention does; the rest the flash path."""
+    """One query against a cache (``ops.decode_attention``: a runtime
+    kv_len, a tensor q_offset) takes chunked_attention over one chunk of T
+    keys on CPU tensors, as the reference's decode does; a full sequence
+    (``ops.flash_attention``) the flash path."""
     B, T, H, K, hd = 2, 48, 4, 2, 16
     (_, tq), (_, tk), (_, tv) = _qkv(4, B, 1, T, H, K, hd, "float32")
-    got = ops.flash_attention(tq, tk, tv, q_offset=30, kv_len=31, kv_chunk=T)
+    got = ops.decode_attention(tq, tk, tv, q_offset=30, kv_len=31)
     want = tlayers.chunked_attention(tq, tk, tv, q_offset=30, kv_len=31, kv_chunk=T)
     assert torch.equal(got, want)
     off = torch.tensor(30)
-    got = ops.flash_attention(tq, tk, tv, q_offset=off, kv_chunk=16)
-    assert torch.equal(got, tlayers.chunked_attention(tq, tk, tv, q_offset=off, kv_chunk=16))
+    got = ops.decode_attention(tq, tk, tv, q_offset=off)
+    assert torch.equal(got, tlayers.chunked_attention(tq, tk, tv, q_offset=off, kv_chunk=T))
     (_, tq), _, _ = _qkv(5, B, 8, T, H, K, hd, "float32")
     assert torch.equal(ops.flash_attention(tq, tk, tv, q_offset=40),
                        flash_attention_plain(tq, tk, tv, q_offset=40))

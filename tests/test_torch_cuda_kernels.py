@@ -423,8 +423,8 @@ def test_flash_attention_kernel_at_recurrentgemma_local_attention(cuda_device):
 @pytest.mark.needs_cuda
 def test_flash_attention_kernel_q_offset_and_decode_route(cuda_device):
     """A prefill continuation (q_offset > 0, S < T) runs the kernel; decode
-    (S == 1 with a kv_len) takes the decode kernel and launches no flash
-    kernel."""
+    (``ops.decode_attention``, S == 1 with a kv_len) takes the decode
+    kernel and launches no flash kernel."""
     q, k, v = _qkv((2, 40, 100, 6, 2, 64), torch.float32, cuda_device, seed=3)
     _close(flash_attention_cuda(q, k, v, q_offset=60),
            flash_attention_plain(q, k, v, q_offset=60), 2e-5)
@@ -432,7 +432,7 @@ def test_flash_attention_kernel_q_offset_and_decode_route(cuda_device):
            flash_attention_plain(q, k, v, q_offset=60, window=17), 2e-5)
     before = flash_attention_cuda.launches
     before_decode = decode_attention_cuda.launches
-    ops.flash_attention(q[:, :1], k, v, q_offset=70, kv_len=71)
+    ops.decode_attention(q[:, :1], k, v, q_offset=70, kv_len=71)
     assert flash_attention_cuda.launches == before
     assert decode_attention_cuda.launches == before_decode + 1
 
@@ -811,7 +811,7 @@ def test_reduced_moe_vlm_encdec_models_on_the_card_match_the_cpu(cuda_device, na
     assert sorted(g_leaves) == sorted(c_leaves)
     for path, leaf in c_leaves.items():
         _close(g_leaves[path].cpu(), leaf, 1e-4)
-    g_state, c_state = (_pad_cache_to(st, cfg.family, S + 1) for st in (g_state, c_state))
+    g_state, c_state = (_pad_cache_to(st, m, S + 1) for st, m in ((g_state, gpu), (c_state, cpu)))
     g_log, _ = gpu.decode_step(g_state, batch["tokens"][:, 0].to(cuda_device), S)
     c_log, _ = cpu.decode_step(c_state, batch["tokens"][:, 0], S)
     _close(g_log.cpu(), c_log, 1e-4)

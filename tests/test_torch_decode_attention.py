@@ -7,8 +7,8 @@ query head in exactly one block), to the launch limits, and to its split
 counts at the served models' shapes; a plain-torch emulation of the
 kernel's split-K arithmetic (each split's partial over its live keys, the
 partials merged in split order) is held to ``chunked_attention``; and
-``ops.flash_attention`` at S == 1 on CPU tensors is ``chunked_attention``
-bit for bit, as before the kernel.
+``ops.decode_attention`` on CPU tensors is ``chunked_attention`` over one
+chunk of T keys bit for bit, as before the kernel.
 """
 
 import pytest
@@ -21,7 +21,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_plan,
 )
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
-from repro_torch.models.layers import chunked_attention  # noqa: E402
+from repro_torch.kernels.ref import chunked_attention  # noqa: E402
 
 # B, H, K, T, hd: the benchmark's chat and doc cells (qwen2-vl-2b: 12 query
 # heads on 2 kv heads of 128), smollm-135m (9 on 3 of 64), moonshot (16 of
@@ -216,13 +216,32 @@ def test_ops_decode_on_the_cpu_is_chunked_attention_bit_for_bit(case, dtype):
     q, k, v = _qkv(2, 12, 2, 96, 64, dtype, seed=7)
     kw = dict(causal=causal, window=window)
     want = chunked_attention(q, k, v, q_offset=q_offset, kv_len=kv_len, kv_chunk=96, **kw)
-    assert torch.equal(ops.flash_attention(q, k, v, q_offset=q_offset, kv_len=kv_len,
-                                           kv_chunk=96, **kw), want)
+    assert torch.equal(ops.decode_attention(q, k, v, q_offset=q_offset, kv_len=kv_len, **kw),
+                       want)
     if kv_len is not None:  # a captured step's position: 0-d int32 tensors
         pos = torch.tensor(q_offset, dtype=torch.int32)
-        got = ops.flash_attention(q, k, v, q_offset=pos, kv_len=pos + (kv_len - q_offset),
-                                  kv_chunk=96, **kw)
+        got = ops.decode_attention(q, k, v, q_offset=pos, kv_len=pos + (kv_len - q_offset), **kw)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("position", ["int", "int32", "int64"])
+@pytest.mark.parametrize("T", [1, 37, 600])
+def test_ops_decode_attention_is_one_chunk_of_t_keys(T, position, p_dtype):
+    """``ops.decode_attention`` on CPU tensors is ``chunked_attention`` over
+    one chunk of all T keys, at an int position and at 0-d int32 and int64
+    tensor positions (a captured step's), at the first, a middle and the
+    last fill, with a scale of its own; the tensor positions give the int
+    position's result bit for bit."""
+    q, k, v = _qkv(3, 6, 2, T, 32, torch.bfloat16, seed=T)
+    for fill in sorted({0, T // 2, T - 1}):
+        want = chunked_attention(q, k, v, q_offset=fill, kv_len=fill + 1, kv_chunk=T,
+                                 p_dtype=p_dtype, scale=0.3)
+        pos = fill if position == "int" else torch.tensor(fill, dtype=getattr(torch, position))
+        got = ops.decode_attention(q, k, v, q_offset=pos, kv_len=pos + 1, p_dtype=p_dtype,
+                                   scale=0.3)
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert torch.equal(got, want), fill
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)

@@ -31,7 +31,7 @@ from repro_torch.kernels import counts, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.models.layers import chunked_attention  # noqa: E402
+from repro_torch.kernels.ref import chunked_attention  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 
 F32_TOL = 2e-5
@@ -91,9 +91,9 @@ def test_decode_kernel_matches_plain_at_the_cells_shapes(cuda_device, cell, dtyp
     q, k, v = _qkv(B, H, K, T, hd, dtype, cuda_device, seed=T)
     pos = _fills(T)[fill]
     before = decode_attention_cuda.launches
-    got = ops.flash_attention(q, k, v, q_offset=pos, kv_len=pos + 1)
+    got = ops.decode_attention(q, k, v, q_offset=pos, kv_len=pos + 1)
     idx = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
-    got_t = ops.flash_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
+    got_t = ops.decode_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
     torch.cuda.synchronize()
     assert decode_attention_cuda.launches == before + 2
     assert got.dtype == dtype and got.shape == q.shape
@@ -114,7 +114,7 @@ def test_decode_kernel_every_head_dim_and_group(cuda_device, dtype, hd, group):
     q, k, v = _qkv(B, K * group, K, T, hd, dtype, cuda_device, seed=hd + group)
     for pos in _fills(T).values():
         idx = torch.tensor(pos, dtype=torch.int64, device=cuda_device)
-        got = ops.flash_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
+        got = ops.decode_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
         _check(got, q, k, v, q_offset=pos, kv_len=pos + 1)
 
 
@@ -126,11 +126,11 @@ def test_decode_kernel_with_a_sliding_window(cuda_device, dtype):
     at late positions, and a short window over a short cache."""
     q, k, v = _qkv(2, 10, 1, 4096, 256, dtype, cuda_device, seed=4)
     for pos, length in ((100, 101), (3000, 3001), (4095, None)):
-        got = ops.flash_attention(q, k, v, q_offset=pos, kv_len=length, window=2048)
+        got = ops.decode_attention(q, k, v, q_offset=pos, kv_len=length, window=2048)
         _check(got, q, k, v, q_offset=pos, kv_len=length, window=2048)
     q, k, v = _qkv(3, 6, 2, 200, 64, dtype, cuda_device, seed=5)
     idx = torch.tensor(150, dtype=torch.int32, device=cuda_device)
-    got = ops.flash_attention(q, k, v, q_offset=idx, kv_len=idx + 1, window=17)
+    got = ops.decode_attention(q, k, v, q_offset=idx, kv_len=idx + 1, window=17)
     _check(got, q, k, v, q_offset=150, kv_len=151, window=17)
 
 
@@ -140,7 +140,7 @@ def test_decode_kernel_non_causal_cross_attention(cuda_device, dtype):
     """seamless-m4t's decode-time cross-attention: one query against every
     encoder frame, no mask (16 heads of 64, one a kv head)."""
     q, k, v = _qkv(4, 16, 16, 1000, 64, dtype, cuda_device, seed=6)
-    got = ops.flash_attention(q, k, v, causal=False)
+    got = ops.decode_attention(q, k, v, causal=False)
     _check(got, q, k, v, causal=False)
 
 
@@ -151,18 +151,18 @@ def test_decode_kernel_rounds_p_and_v_to_bf16_under_that_p_dtype(cuda_device, dt
     q, k, v = _qkv(B, H, K, T, hd, dtype, cuda_device, seed=7)
     for pos in (0, 600):
         kw = dict(q_offset=pos, kv_len=pos + 1, p_dtype="bfloat16")
-        got = ops.flash_attention(q, k, v, **kw)
+        got = ops.decode_attention(q, k, v, **kw)
         _close(got, _plain(q, k, v, **kw), 2e-2)
         # and not the float32 route's result: the rounding shows at float32
         if dtype == torch.float32 and pos:
-            assert not torch.equal(got, ops.flash_attention(q, k, v, q_offset=pos,
-                                                            kv_len=pos + 1))
+            assert not torch.equal(got, ops.decode_attention(q, k, v, q_offset=pos,
+                                                             kv_len=pos + 1))
 
 
 @pytest.mark.needs_cuda
 def test_decode_kernel_with_no_live_key_averages_the_cache_as_plain_does(cuda_device):
     q, k, v = _qkv(2, 4, 2, 300, 64, torch.float32, cuda_device, seed=8)
-    got = ops.flash_attention(q, k, v, q_offset=5, kv_len=0)
+    got = ops.decode_attention(q, k, v, q_offset=5, kv_len=0)
     _check(got, q, k, v, q_offset=5, kv_len=0)
 
 
@@ -173,8 +173,8 @@ def test_two_launches_are_bitwise_equal(cuda_device, cell):
     B, H, K, T, hd = CELLS[cell]
     q, k, v = _qkv(B, H, K, T, hd, torch.bfloat16, cuda_device, seed=9)
     assert decode_plan(B, H, K, T, hd, torch.bfloat16).splits > 1
-    a = ops.flash_attention(q, k, v, q_offset=T - 5, kv_len=T - 4)
-    b = ops.flash_attention(q, k, v, q_offset=T - 5, kv_len=T - 4)
+    a = ops.decode_attention(q, k, v, q_offset=T - 5, kv_len=T - 4)
+    b = ops.decode_attention(q, k, v, q_offset=T - 5, kv_len=T - 4)
     assert torch.equal(a, b)
 
 
@@ -190,32 +190,52 @@ def test_a_captured_decode_replays_at_every_position_as_eager_calls(cuda_device)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        ops.flash_attention(q, k, v, q_offset=idx, kv_len=idx + 1)  # warm-up: the build
+        ops.decode_attention(q, k, v, q_offset=idx, kv_len=idx + 1)  # warm-up: the build
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = ops.flash_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
+        out = ops.decode_attention(q, k, v, q_offset=idx, kv_len=idx + 1)
     for pos in (0, 1, 31, 32, 255, 256, 257, 511, 512, 600, 767):
         idx.fill_(pos)
         graph.replay()
-        want = ops.flash_attention(q, k, v, q_offset=pos, kv_len=pos + 1)
+        want = ops.decode_attention(q, k, v, q_offset=pos, kv_len=pos + 1)
         torch.cuda.synchronize()
         assert torch.equal(out, want), pos
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("unroll", [False, True], ids=["whole", "unroll"])
+@pytest.mark.parametrize("position", ["int", "tensor"])
+def test_a_cached_decode_step_runs_the_kernel_under_every_knob(cuda_device, position, unroll):
+    """On CUDA tensors a decode step's attention against its cache is
+    kernel 6 (one launch) at an int and at a tensor position, with
+    ``unroll_causal`` on or off: the kernel reads the filled keys alone,
+    so no knob sends it to the plain route."""
+    from repro_torch.models import ExecConfig, transformer
+
+    q, k, v = _qkv(2, 6, 2, 96, 64, torch.bfloat16, cuda_device, seed=11)
+    idx = 40 if position == "int" else torch.tensor(40, dtype=torch.int32, device=cuda_device)
+    before = decode_attention_cuda.launches
+    got = transformer._cached_attention(ExecConfig(unroll_causal=unroll, kv_chunk=32), q, k, v,
+                                        idx)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    assert torch.equal(got, ops.decode_attention(q, k, v, q_offset=40, kv_len=41))
 
 
 @pytest.mark.needs_cuda
 def test_the_kernel_refuses_what_it_does_not_take(cuda_device):
     q, k, v = _qkv(2, 4, 2, 64, 48, torch.bfloat16, cuda_device)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q, k, v, q_offset=3, kv_len=4)
+        ops.decode_attention(q, k, v, q_offset=3, kv_len=4)
     q, k, v = _qkv(2, 4, 2, 64, 64, torch.float16, cuda_device)
     with pytest.raises(TypeError, match="float16"):
-        ops.flash_attention(q, k, v, q_offset=3, kv_len=4)
+        ops.decode_attention(q, k, v, q_offset=3, kv_len=4)
     q, k, v = _qkv(2, 4, 2, 64, 64, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="p_dtype"):
-        ops.flash_attention(q, k, v, q_offset=3, kv_len=4, p_dtype="float16")
+        ops.decode_attention(q, k, v, q_offset=3, kv_len=4, p_dtype="float16")
     with pytest.raises(RuntimeError, match="no backward"):
-        ops.flash_attention(q.requires_grad_(), k, v, q_offset=3, kv_len=4)
+        ops.decode_attention(q.requires_grad_(), k, v, q_offset=3, kv_len=4)
 
 
 @pytest.mark.needs_cuda

@@ -231,6 +231,46 @@ def test_decode_under_unroll_causal_skips_the_unfilled_cache():
         assert dots[False] - dots[True] == cfg.n_layers * 4 * B * H * (T - kept * chunk) * hd
 
 
+@pytest.mark.parametrize("unroll", [False, True], ids=["whole", "unroll"])
+@pytest.mark.parametrize("position", ["int", "tensor"])
+@pytest.mark.parametrize("S", [1, 3], ids=["decode", "continuation"])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_cached_attention_makes_one_plain_call_with_the_knobs_it_honours(monkeypatch, impl, S,
+                                                                         position, unroll):
+    """Queries against a cache on CPU tensors, on either ``attn_impl``, at
+    an int or a 0-d tensor position, with ``unroll_causal`` on or off: one
+    ``chunked_attention`` call (``ops.decode_attention``'s plain route for
+    one query on ``"pallas"``, the model's own otherwise) over all T keys
+    as one chunk for one query, over ``kv_chunk`` keys a chunk where the
+    knob skips or more queries come, the knob honoured at an int position
+    alone; the step's output is that call's."""
+    from repro_torch.kernels import decode_attention
+    from repro_torch.models import transformer
+
+    T, chunk, pos = 24, 8, 9
+    calls = []
+    real = layers.chunked_attention
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(transformer, "chunked_attention", spy)
+    monkeypatch.setattr(decode_attention, "chunked_attention", spy)
+    q, k, v = map(torch.from_numpy, _qkv(S, T, seed=3))
+    idx = pos if position == "int" else torch.tensor(pos)
+    ex = ExecConfig(attn_impl=impl, unroll_causal=unroll, kv_chunk=chunk)
+    got = transformer._cached_attention(ex, q, k, v, idx)
+    skip = unroll and position == "int"
+    (kw,) = calls
+    assert kw["kv_chunk"] == (T if S == 1 and not skip else chunk)
+    assert kw.get("unroll_causal", False) == skip
+    assert kw["q_offset"] is idx and int(kw["kv_len"]) == pos + S
+    assert kw.get("causal", True) and not kw.get("window", 0) and kw.get("scale") is None
+    assert torch.equal(got, real(q, k, v, q_offset=idx, kv_len=idx + S, kv_chunk=kw["kv_chunk"],
+                                 unroll_causal=skip))
+
+
 # ---------------------------------------------------------------------------
 # the dry-run's counts: all-to-alls, and the Griffin gates' partial sum
 # ---------------------------------------------------------------------------

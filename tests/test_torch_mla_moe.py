@@ -315,14 +315,15 @@ def test_the_full_tree_has_the_published_parameter_count():
 
 def test_the_latent_kernels_count_as_mla_decode_launches():
     from repro_torch.kernels import counts
+    from repro_torch.models.model import decode_launches
 
     names = ["void (anonymous namespace)::mla_decode_mma_kernel(__nv_bfloat16 const*)",
              "_ZN12_GLOBAL__N_117mla_decode_kernelIfEEvPKT_",
              "void (anonymous namespace)::mla_decode_merge_kernel<float>(float const*)",
              "void (anonymous namespace)::decode_attention_kernel<float, 64, 2>(float const*)"]
     assert counts.seen(names) == {"mla_decode": 2, "decode_attention": 1}
-    assert counts.decode_launches(get_arch(ARCH), 3) == {"mla_decode": 81, "rotary": 81}
-    assert counts.decode_launches(get_arch("moonshot-v1-16b-a3b"), 3) == {
+    assert decode_launches(get_arch(ARCH), 3) == {"mla_decode": 81, "rotary": 81}
+    assert decode_launches(get_arch("moonshot-v1-16b-a3b"), 3) == {
         "decode_attention": 144, "rotary": 144}
 
 

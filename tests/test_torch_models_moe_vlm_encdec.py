@@ -221,7 +221,7 @@ def test_prefill_then_decode_matches_forward(pair):
     last, state = port.prefill(_torch(_cut(cfg, batch, S)))
     if name.endswith("@nodrop") or cfg.family != "moe":
         np.testing.assert_allclose(last.numpy(), full[:, S - 1].numpy(), **TOL)
-    state = _pad_cache_to(state, cfg.family, S + EXTRA)
+    state = _pad_cache_to(state, port, S + EXTRA)
     for t in range(EXTRA):
         logits, state = port.decode_step(state, torch.from_numpy(_step_tokens(cfg, batch, t)),
                                          S + t)
@@ -392,7 +392,7 @@ def test_encdec_state_and_padding():
         + [(cfg.n_layers, B, ENC_LEN, cfg.n_kv_heads, cfg.head_dim)] * 2
     assert tuple(port.init_state(B, 30)["cross"][0].shape)[2] == 30
     _, pre = port.prefill(_torch(_batch(cfg, 4, n=S)))
-    grown = _pad_cache_to(pre, "encdec", S + 5)
+    grown = _pad_cache_to(pre, port, S + 5)
     assert grown["self"][0].shape[2] == S + 5 and grown["cross"][0] is pre["cross"][0]
     assert torch.equal(grown["self"][1][:, :, :S], pre["self"][1])
 

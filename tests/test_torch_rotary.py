@@ -15,10 +15,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.kernels import counts, ops  # noqa: E402
+from repro_torch.kernels import counts, ops, rotary  # noqa: E402
 from repro_torch.kernels.rotary import _strides, _vec, rotary_cuda, rotary_plain  # noqa: E402
 from repro_torch.models import ExecConfig, Model  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
+from repro_torch.models.model import decode_launches, prefill_launches  # noqa: E402
 
 THETA = 1e6
 
@@ -65,20 +66,22 @@ def _batch(cfg, B=2, S=6):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_both_routes_on_the_cpu_rotate_by_apply_rope(monkeypatch, name):
-    """A model's forward on the CPU rotates through ``layers.apply_rope`` /
-    ``apply_mrope`` under either ``attn_impl``, once for q and once for k
-    in every layer that rotates."""
+    """A model's forward on the CPU rotates through ``apply_rope`` /
+    ``apply_mrope`` (``kernels.rotary``, which ``layers`` names) under
+    either ``attn_impl``, once for q and once for k in every layer that
+    rotates."""
     cfg = get_arch(name).reduced()
     calls = []
     for fn in ("apply_rope", "apply_mrope"):
-        real = getattr(layers, fn)
-        monkeypatch.setattr(layers, fn, lambda *a, _r=real, _n=fn: calls.append(_n) or _r(*a))
+        real = getattr(rotary, fn)
+        assert getattr(layers, fn) is real
+        monkeypatch.setattr(rotary, fn, lambda *a, _r=real, _n=fn: calls.append(_n) or _r(*a))
     params = Model(cfg, generator=torch.Generator().manual_seed(0), device="cpu").params
     batch = _batch(cfg)
     for impl in ("pallas", "xla"):
         calls.clear()
         Model(cfg, ExecConfig(attn_impl=impl), params=params, device="cpu").forward(batch)
-        n = counts.prefill_launches(cfg)["rotary"]
+        n = prefill_launches(cfg)["rotary"]
         assert calls == ["apply_mrope" if cfg.rope == "mrope" else "apply_rope"] * (2 * n)
 
 
@@ -164,16 +167,16 @@ def test_the_launch_counts_know_the_rotary_kernel():
              "void (anonymous namespace)::rotary_kernel_extra<float, 1>(Args)"]
     assert counts.seen(names) == {"rotary": 2}
     assert "rotary" in counts.read()
-    assert counts.decode_launches(get_arch("qwen2-vl-2b"), 1) == {"decode_attention": 28,
+    assert decode_launches(get_arch("qwen2-vl-2b"), 1) == {"decode_attention": 28,
                                                                   "rotary": 28}
-    assert counts.decode_launches(get_arch("moonlight-16b-a3b"), 1) == {"mla_decode": 27,
+    assert decode_launches(get_arch("moonlight-16b-a3b"), 1) == {"mla_decode": 27,
                                                                         "rotary": 27}
-    assert counts.decode_launches(get_arch("recurrentgemma-2b"), 2) == {"rotary": 16}
-    assert counts.decode_launches(get_arch("mamba2-130m"), 2) == {}
-    assert counts.prefill_launches(get_arch("qwen2-vl-2b")) == {"flash_attention": 28,
+    assert decode_launches(get_arch("recurrentgemma-2b"), 2) == {"rotary": 16}
+    assert decode_launches(get_arch("mamba2-130m"), 2) == {}
+    assert prefill_launches(get_arch("qwen2-vl-2b")) == {"flash_attention": 28,
                                                                "rotary": 28}
     seamless = get_arch("seamless-m4t-large-v2")
-    assert "rotary" not in counts.prefill_launches(seamless)
+    assert "rotary" not in prefill_launches(seamless)
     with_rope = dataclasses.replace(seamless, rope="rope")
-    assert counts.prefill_launches(with_rope)["rotary"] == 24 + 24
-    assert counts.decode_launches(with_rope, 1)["rotary"] == 24
+    assert prefill_launches(with_rope)["rotary"] == 24 + 24
+    assert decode_launches(with_rope, 1)["rotary"] == 24

@@ -224,8 +224,8 @@ def test_a_models_kernel_route_matches_its_plain_route(cuda_device, name):
 
     tok = torch.argmax(got_last, -1).to(torch.int32)
     step = torch.tensor(S, dtype=torch.int32, device=cuda_device)
-    a, _ = kernel.decode_step(_pad_cache_to(got_state, cfg.family, S + 2), tok, step)
-    b, _ = plain.decode_step(_pad_cache_to(want[1], cfg.family, S + 2), tok, S)
+    a, _ = kernel.decode_step(_pad_cache_to(got_state, kernel, S + 2), tok, step)
+    b, _ = plain.decode_step(_pad_cache_to(want[1], plain, S + 2), tok, S)
     assert counts.read()["rotary"] - before == 2 * cfg.n_layers
     torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 

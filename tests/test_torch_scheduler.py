@@ -6,11 +6,13 @@ engine and through the port's ``"torch"`` and ``"scalar"`` engines, carried
 across field by field with :mod:`repro_torch.convert`.  Every result field
 must be equal, floats included: both packages run the same float64
 operations in the same order.  Also here: the block enumerator's
-``ComboBlock`` streams against the reference's, and the port's import
-hygiene (no ``jax``, nothing of ``repro``).
+``ComboBlock`` streams against the reference's, the port's import
+hygiene (no ``jax``, nothing of ``repro``), and its layers' imports, which
+point one way.
 """
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -276,6 +278,68 @@ def test_port_imports_neither_jax_nor_the_reference():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def _imported(path: Path) -> list[str]:
+    """The modules a port file imports, at module or function level, as
+    absolute dotted names (a relative import resolved against the file's
+    package; ``from x import y`` as both ``x`` and ``x.y``)."""
+    package = ("repro_torch", *path.relative_to(PORT_SRC).with_suffix("").parts[:-1])
+    out = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(package[:len(package) - node.level + 1]) if node.level else ""
+            module = ".".join(p for p in (base, node.module or "") if p)
+            out += [module] + [f"{module}.{a.name}" for a in node.names]
+    return out
+
+
+def _attributes(path: Path) -> set[str]:
+    """Every attribute name a file reads (``x.name``)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {node.attr for node in ast.walk(tree) if isinstance(node, ast.Attribute)}
+
+
+def _imports_none_of(files, *above):
+    def check():
+        for path in files:
+            for name in _imported(path):
+                assert not name.startswith(above), f"{path.name} imports {name}"
+    return check
+
+
+def _kernel_counts_read_no_config():
+    from repro_torch.configs.base import ModelConfig
+
+    path = PORT_SRC / "kernels" / "counts.py"
+    _imports_none_of([path], "repro_torch.configs")()
+    fields = {f.name for f in dataclasses.fields(ModelConfig)} | {"layer_kinds", "mla"}
+    assert not _attributes(path) & fields, sorted(_attributes(path) & fields)
+
+
+def _engine_reads_no_family():
+    assert "family" not in _attributes(PORT_SRC / "serve" / "engine.py")
+
+
+# The port's layers, imports pointing one way: configs, sharding.ctx, trace
+# and _tree under kernels, under models, under graphs, under serve, train
+# and launch.  The serving engine asks the model what its family decides.
+LAYER_RULES = {
+    "kernels-import-nothing-above-them": _imports_none_of(
+        sorted((PORT_SRC / "kernels").rglob("*.py")), "repro_torch.models", "repro_torch.serve",
+        "repro_torch.train", "repro_torch.launch"),
+    "train-imports-nothing-from-serve": _imports_none_of(
+        sorted((PORT_SRC / "train").rglob("*.py")), "repro_torch.serve"),
+    "serve-engine-reads-no-family": _engine_reads_no_family,
+    "kernel-counts-read-no-config": _kernel_counts_read_no_config,
+}
+
+
+@pytest.mark.parametrize("rule", list(LAYER_RULES))
+def test_port_layers_import_one_way(rule):
+    LAYER_RULES[rule]()
 
 
 @pytest.mark.parametrize("exhaustive", [False, True], ids=["stop-at-winner", "exhaustive"])

@@ -65,7 +65,7 @@ def test_greedy_generate_equals_manual_prefill_and_decode():
     out = ServeEngine(port, ServeConfig(max_len=S + NEW)).generate({"tokens": tok}, NEW)
     prefill, decode = make_prefill_step(port), make_decode_step(port)
     last, state = prefill({"tokens": tok})
-    state = _pad_cache_to(state, "dense", S + NEW)
+    state = _pad_cache_to(state, port, S + NEW)
     assert tuple(state[0].shape) == (cfg.n_layers, B, S + NEW, cfg.n_kv_heads, cfg.head_dim)
     want = [torch.argmax(last, -1)]
     for t in range(1, NEW):
@@ -113,7 +113,7 @@ def test_hybrid_state_passes_through_the_engine_fixed_size():
     cfg, _, _, port = _pair("recurrentgemma-2b", 3)
     tok = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 5)))
     _, state = make_prefill_step(port)({"tokens": tok})
-    assert _pad_cache_to(state, "hybrid", 64) is state
+    assert _pad_cache_to(state, port, 64) is state
     zero = port.init_state(2, 64)
     assert sorted(zero) == sorted(state) == ["super"]
     for i in ("0", "1", "2"):

@@ -43,9 +43,10 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import params_from  # noqa: E402
 from repro_torch.kernels import counts  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.model import decode_launches, prefill_launches  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.engine import _pad_cache_to  # noqa: E402
-from repro_torch.serve.graphs import CudaGraphStep, kernel_nodes, signature  # noqa: E402
+from repro_torch.graphs import CudaGraphStep, kernel_nodes, signature  # noqa: E402
 from repro_torch.sharding.ctx import write_slice  # noqa: E402
 
 ARCHS = ["smollm-135m", "mamba2-130m", "recurrentgemma-2b", "moonshot-v1-16b-a3b",
@@ -104,7 +105,7 @@ def test_decode_step_at_a_tensor_position_equals_the_int_position(name):
     S, steps = (13, 6) if model.cfg.family == "hybrid" else (12, 3)
     batch = _torch(_batch(model.cfg, S, 5))
     _, state = model.prefill(batch)
-    state = _pad_cache_to(state, model.cfg.family, S + steps)
+    state = _pad_cache_to(state, model, S + steps)
     st_int = unflatten(state, [t.clone() for t in leaves(state)])
     st_tensor = unflatten(state, [t.clone() for t in leaves(state)])
     tok = batch["tokens"][:, 0]
@@ -150,8 +151,8 @@ def test_pad_cache_into_buffers_equals_the_eager_growth(name):
         if family == "encdec" and S == 9:
             batch["enc_embeds"] = batch["enc_embeds"][:, :7]  # another encoder length
         _, state = model.prefill(_torch(batch))
-        want = _pad_cache_to(state, family, max_len)
-        got = _pad_cache_to(state, family, max_len, buffers)
+        want = _pad_cache_to(state, model, max_len)
+        got = _pad_cache_to(state, model, max_len, buffers)
         assert _equal_trees(got, want) and signature(got) == signature(want)
         if firsts is None:
             firsts = leaves(got)
@@ -417,8 +418,8 @@ def test_captured_generate_equals_eager_and_replays(cuda_device, name):
     S, new = (13, 6) if model.cfg.family == "hybrid" else (12, 5)
     cfg = ServeConfig(max_len=S + new)
     eager, captured = ServeEngine(model, cfg, jit=False), ServeEngine(model, cfg)
-    want = counts.prefill_launches(model.cfg)  # float32: no tensor-core launch
-    step = counts.decode_launches(model.cfg, 1)  # a decode step's
+    want = prefill_launches(model.cfg)  # float32: no tensor-core launch
+    step = decode_launches(model.cfg, 1)  # a decode step's
     first, second = (_torch(_batch(model.cfg, S, seed), cuda_device) for seed in (1, 2))
     got, n_first = _counted(lambda: captured.generate(first, new))  # captures both steps
     assert torch.equal(got, eager.generate(first, new))
@@ -431,7 +432,7 @@ def test_captured_generate_equals_eager_and_replays(cuda_device, name):
     (prefill_key,), (decode_key,) = captured._prefill.graphs, captured._decode.graphs
     assert captured._prefill.launches(prefill_key) == want  # the graph's kernel nodes
     assert captured._decode.launches(decode_key) == step
-    steps = counts.decode_launches(model.cfg, new - 1)
+    steps = decode_launches(model.cfg, new - 1)
     assert _shows(seen, counts.total(want, steps)) and captured._prefill.replayed == want
     other, n_other = _counted(lambda: captured.generate(second, new))
     _, n_eager = _counted(lambda: eager.generate(second, new))
@@ -542,8 +543,8 @@ def test_bf16_captured_generate_runs_on_the_tensor_core_kernels(cuda_device):
     want = {"flash_attention": cfg.n_layers, "flash_attention_mma": cfg.n_layers,
             "rotary": cfg.n_layers}
     _, n = _counted(lambda: engine.generate(batch, 4))  # the warm-up and the captures
-    assert n == counts.total(want, counts.decode_launches(cfg, 1))
+    assert n == counts.total(want, decode_launches(cfg, 1))
     (_, seen), n = _counted(lambda: _traced_launches(lambda: engine.generate(batch, 4)))
     (key,) = engine._prefill.graphs
     assert n == {} and engine._prefill.launches(key) == want
-    assert _shows(seen, counts.total(want, counts.decode_launches(cfg, 3)))
+    assert _shows(seen, counts.total(want, decode_launches(cfg, 3)))

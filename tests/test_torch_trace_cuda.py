@@ -40,7 +40,7 @@ from repro_torch.models import transformer
 from repro_torch.optim import AdamW, linear_warmup_cosine
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.serve import engine as engine_mod
-from repro_torch.serve.graphs import signature
+from repro_torch.graphs import signature
 from repro_torch.train import TrainLoop, TrainLoopConfig
 
 pytestmark = pytest.mark.needs_cuda

@@ -41,7 +41,7 @@ from repro_torch.configs.shapes import InputShape  # noqa: E402
 from repro_torch.data import make_batch_fn  # noqa: E402
 from repro_torch.models import ExecConfig, Model  # noqa: E402
 from repro_torch.optim import AdamW, linear_warmup_cosine  # noqa: E402
-from repro_torch.serve.graphs import CudaGraphStep  # noqa: E402
+from repro_torch.graphs import CudaGraphStep  # noqa: E402
 from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step  # noqa: E402
 
 # dense, moe (both layouts), ssm, hybrid, encdec, vlm; "+top6": the reduced

@@ -48,7 +48,7 @@ from repro_torch.core.variants import make_hetero_fleet  # noqa: E402
 from repro_torch.launch.train import build_loop  # noqa: E402
 from repro_torch.models import ExecConfig, Model  # noqa: E402
 from repro_torch.optim import AdamW, linear_warmup_cosine  # noqa: E402
-from repro_torch.serve.graphs import CudaGraphStep, signature  # noqa: E402
+from repro_torch.graphs import CudaGraphStep, signature  # noqa: E402
 from repro_torch.train import TrainLoop, TrainLoopConfig, TrainState  # noqa: E402
 
 LOSS_REL = 1e-5

@@ -34,7 +34,7 @@ from repro_torch.data import make_batch_fn  # noqa: E402
 from repro_torch.kernels import counts  # noqa: E402
 from repro_torch.models import ExecConfig, Model  # noqa: E402
 from repro_torch.optim import AdamW, linear_warmup_cosine  # noqa: E402
-from repro_torch.serve.graphs import CudaGraphStep  # noqa: E402
+from repro_torch.graphs import CudaGraphStep  # noqa: E402
 from repro_torch.train import TrainLoop, TrainLoopConfig  # noqa: E402
 
 FAMILY_ARCHS = ["smollm-135m", "moonshot-v1-16b-a3b", "mamba2-130m", "recurrentgemma-2b",
